@@ -1,4 +1,4 @@
-"""Benchmark CLI for the TPU vector engine.
+"""Benchmark CLI for the vector engine.
 
 Parity with the reference's benchmark suites (examples/benchmark.py:
 presets 10k-2M, category selection --only/--skip, JSON export, --compare
@@ -83,7 +83,7 @@ def make_data(n: int, d: int, queries: int, seed: int = 0):
 
 def run(preset: str, only=None, skip=None, seed: int = 0) -> dict:
     import jax
-    from fastpyvectordb_tpu import Collection, CollectionConfig, Filter
+    from fastpyvectordb_jax import Collection, CollectionConfig, Filter
 
     cfg = PRESETS[preset]
     n, d, nq, batch = cfg["n"], cfg["d"], cfg["queries"], cfg["batch"]
@@ -105,7 +105,7 @@ def run(preset: str, only=None, skip=None, seed: int = 0) -> dict:
 
     col = Collection(CollectionConfig(
         name="bench", dimensions=d, metric="cosine",
-        compute_dtype="bfloat16" if jax.devices()[0].platform == "tpu"
+        compute_dtype="bfloat16" if jax.devices()[0].platform == "gpu"
         else "float32"))
 
     # ---- insert ---------------------------------------------------------

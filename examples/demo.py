@@ -3,7 +3,7 @@
 Reference parity: /root/reference/examples/demo.py (566 LoC) — the same
 six-part walkthrough (vector search with filters, graph database with
 traversal, manual hybrid fusion, automatic embeddings, realtime events,
-persistence & recovery), plus the TPU-native extras this framework adds:
+persistence & recovery), plus the device-side extras this framework adds:
 the quantized two-stage scan, ANN indexes with incremental maintenance,
 and graph+vector fusion.  Runs fully offline on any backend.
 
@@ -18,15 +18,15 @@ import time
 
 import numpy as np
 
-import fastpyvectordb_tpu as fvdb
-from fastpyvectordb_tpu import CollectionConfig, Filter, VectorDB
-from fastpyvectordb_tpu.embeddings import (CachedEmbedder,
+import fastpyvectordb_jax as fvdb
+from fastpyvectordb_jax import CollectionConfig, Filter, VectorDB
+from fastpyvectordb_jax.embeddings import (CachedEmbedder,
                                            EmbeddingCollection,
                                            MockEmbedder)
-from fastpyvectordb_tpu.graphdb import GraphDB
-from fastpyvectordb_tpu.graphdb.hybrid import HybridGraphVectorDB
-from fastpyvectordb_tpu.hybrid import HybridCollection
-from fastpyvectordb_tpu.realtime import EventBus, ObservableCollection
+from fastpyvectordb_jax.graphdb import GraphDB
+from fastpyvectordb_jax.graphdb.hybrid import HybridGraphVectorDB
+from fastpyvectordb_jax.hybrid import HybridCollection
+from fastpyvectordb_jax.realtime import EventBus, ObservableCollection
 
 
 def print_header(title):
@@ -203,7 +203,7 @@ def demo_hybrid_search():
                            text_fields=["text"])
     docs = {
         "jax": "JAX traces python functions and compiles them with XLA",
-        "tpu": "TPUs multiply big bfloat16 matrices on a systolic array",
+        "gpu": "GPUs multiply big bfloat16 matrices on tensor cores",
         "cnn": "convolutional networks recognize images by local patterns",
         "soup": "a slow-simmered soup recipe for cold winter evenings",
         "fed": "central banks move markets when they change interest rates",
@@ -224,7 +224,7 @@ def demo_hybrid_search():
     assert best.id == "fed", best.id
 
     print_section("keyword-only surface")
-    for r in col.keyword_search("systolic array matrices", k=2):
+    for r in col.keyword_search("tensor cores matrices", k=2):
         print(f"  {r.id}: bm25={r.keyword_score:.3f}")
     return True
 
@@ -346,10 +346,10 @@ def demo_persistence():
 
 
 # =========================================================================
-# DEMO 7 (TPU-native extra): quantized two-stage scan
+# DEMO 7 (device-side extra): quantized two-stage scan
 # =========================================================================
 def demo_quantized():
-    print_header("DEMO 7: Quantized Two-Stage Scan (TPU-native)")
+    print_header("DEMO 7: Quantized Two-Stage Scan")
     rng = np.random.default_rng(3)
     n, d = 5000, 128
     col = fvdb.Collection(CollectionConfig(name="q", dimensions=d,
@@ -377,7 +377,7 @@ def demo_quantized():
 
 
 # =========================================================================
-# DEMO 8 (TPU-native extra): ANN indexes + incremental maintenance
+# DEMO 8 (device-side extra): ANN indexes + incremental maintenance
 # =========================================================================
 def demo_ann():
     print_header("DEMO 8: ANN Indexes + Incremental Maintenance")
@@ -411,7 +411,7 @@ def demo_ann():
 
 
 # =========================================================================
-# DEMO 9 (TPU-native extra): graph + vector fusion
+# DEMO 9 (device-side extra): graph + vector fusion
 # =========================================================================
 def demo_graph_vector():
     print_header("DEMO 9: Graph + Vector Fusion")

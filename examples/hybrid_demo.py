@@ -23,8 +23,8 @@ from collections import Counter
 
 import numpy as np
 
-from fastpyvectordb_tpu import CollectionConfig
-from fastpyvectordb_tpu.hybrid import HybridCollection
+from fastpyvectordb_jax import CollectionConfig
+from fastpyvectordb_jax.hybrid import HybridCollection
 
 
 class TfIdfEmbedder:
@@ -80,10 +80,10 @@ DOCUMENTS = [
         "Product quantization compresses a vector into subspace codebook "
         "indices; asymmetric distance computation scores codes against a "
         "per-query lookup table without decompressing.")),
-    dict(id="mxu-1", category="hardware", text=(
-        "The TPU MXU is a systolic array that multiplies large matrices "
-        "in bfloat16; keeping batches wide and shapes static is what "
-        "lets the compiler tile work onto it.")),
+    dict(id="tensorcore-1", category="hardware", text=(
+        "A GPU's tensor cores multiply large matrices in bfloat16; keeping "
+        "batches wide and shapes static is what lets the compiler tile "
+        "work onto them.")),
     dict(id="emb-1", category="ml", text=(
         "Text embeddings map sentences to dense vectors where nearby "
         "points mean similar meaning; they power semantic search, "

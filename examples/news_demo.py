@@ -12,10 +12,10 @@ import random
 
 import numpy as np
 
-from fastpyvectordb_tpu import CollectionConfig, Filter
-from fastpyvectordb_tpu.embeddings import HashingEmbedder
-from fastpyvectordb_tpu.graphdb import GraphDB
-from fastpyvectordb_tpu.hybrid import HybridCollection
+from fastpyvectordb_jax import CollectionConfig, Filter
+from fastpyvectordb_jax.embeddings import HashingEmbedder
+from fastpyvectordb_jax.graphdb import GraphDB
+from fastpyvectordb_jax.hybrid import HybridCollection
 
 TOPICS = {
     "tech": ["chip factory output", "cloud revenue growth",

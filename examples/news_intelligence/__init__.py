@@ -1,6 +1,6 @@
 """News-intelligence end-to-end application (reference parity:
 examples/news_intelligence_demo.py:93-979 + query_news_db.py, rebuilt
-on the TPU-native engine).
+on the device engine).
 
 Modules:
   datagen   — synthetic news corpus generator (deterministic, offline)

@@ -16,7 +16,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from fastpyvectordb_tpu.embeddings import HashingEmbedder
+from fastpyvectordb_jax.embeddings import HashingEmbedder
 
 # --------------------------------------------------------------------------
 # domain tables (original content)

@@ -15,9 +15,9 @@ import time
 
 import numpy as np
 
-from fastpyvectordb_tpu import Filter
-from fastpyvectordb_tpu.profiling import QueryTimer
-from fastpyvectordb_tpu.realtime import Event, EventBus, EventType, \
+from fastpyvectordb_jax import Filter
+from fastpyvectordb_jax.profiling import QueryTimer
+from fastpyvectordb_jax.realtime import Event, EventBus, EventType, \
     ObservableCollection
 
 from .datagen import CATEGORIES, COMPANIES, DemoConfig

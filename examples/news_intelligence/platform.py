@@ -1,6 +1,6 @@
 """The news-intelligence application: one corpus, four indexes.
 
-  * vector index      — HybridCollection (exact TPU scan + optional ANN)
+  * vector index      — HybridCollection (exact device scan + optional ANN)
   * BM25 index        — keyword search over headline+content
   * knowledge graph   — articles, entities, topics, outlets + co-mention
                         hyperedges (GraphDB)
@@ -18,9 +18,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from fastpyvectordb_tpu import CollectionConfig, Filter
-from fastpyvectordb_tpu.graphdb import GraphDB
-from fastpyvectordb_tpu.hybrid import HybridCollection
+from fastpyvectordb_jax import CollectionConfig, Filter
+from fastpyvectordb_jax.graphdb import GraphDB
+from fastpyvectordb_jax.hybrid import HybridCollection
 
 from .datagen import Article, DemoConfig, NewsDataGenerator
 

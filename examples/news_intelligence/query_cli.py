@@ -26,7 +26,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-from fastpyvectordb_tpu import Filter
+from fastpyvectordb_jax import Filter
 
 from .datagen import DemoConfig
 from .platform import NewsIntelligencePlatform
@@ -60,7 +60,7 @@ class NewsQueryInterface:
             self.p.generator.query_embedding(value), k=k,
             filter=Filter.eq(key, value))
         if not hits:  # fall back to pure filter browse (no semantic signal)
-            from fastpyvectordb_tpu.core.types import SearchResult
+            from fastpyvectordb_jax.core.types import SearchResult
             rows = self.p.collection.get_batch(self.p.collection.all_ids())
             hits = [SearchResult(id=a["id"], score=0.0,
                                  metadata=a["metadata"])

@@ -10,7 +10,7 @@ the capabilities *beyond* the reference's quickstart surface
   3. IVF-PQ               — ~30x smaller index for large corpora, tuned
   4. tune_rerank          — data-driven recall for quantized serving
   5. shard router         — two engine processes behind one front
-  6. >HBM corpora         — streamed exact + quantized-code tiers
+  6. beyond device memory — streamed exact + quantized-code tiers
   7. compile warmup       — prewarm the serving shapes before traffic
 
 Runs offline on the CPU backend in ~1 minute: python examples/production_ops.py
@@ -22,15 +22,16 @@ jax.config.update("jax_platforms", "cpu")
 import asyncio
 import shutil
 import socket
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 import numpy as np
 
-from fastpyvectordb_tpu import Collection, CollectionConfig
+from fastpyvectordb_jax import Collection, CollectionConfig
 
-BASE = Path("/tmp/fpvt_production_ops")
+BASE = Path(tempfile.gettempdir()) / "fpvt_production_ops"
 
 
 def banner(title):
@@ -74,7 +75,7 @@ def demo_wal():
 
 def demo_integrity():
     banner("2. Container integrity: CRC32 per section")
-    from fastpyvectordb_tpu.persist.format import (load_container,
+    from fastpyvectordb_jax.persist.format import (load_container,
                                                    save_container)
     p = BASE / "integrity.fpvt"
     save_container(p, {"vectors": np.random.rand(100, 8).astype(np.float32)})
@@ -133,8 +134,8 @@ def demo_router():
     import httpx
     from aiohttp import web
 
-    from fastpyvectordb_tpu.server.app import create_app
-    from fastpyvectordb_tpu.server.router import create_router_app
+    from fastpyvectordb_jax.server.app import create_app
+    from fastpyvectordb_jax.server.router import create_router_app
 
     def free_port():
         with socket.socket() as s:
@@ -180,13 +181,13 @@ def demo_router():
         assert hits[0]["id"] == "v17"
 
 
-def demo_beyond_hbm():
-    banner("6. >HBM corpora: streamed exact + quantized-code tiers")
+def demo_beyond_device_memory():
+    banner("6. Beyond device memory: streamed exact + quantized-code tiers")
     # the scale ladder (reference README.md:571-578 ">10M: mmap + binary
     # codes + candidates"): OutOfCoreSearcher streams every byte exactly;
     # QuantizedOutOfCoreSearcher streams int8/pq/binary CODE tiles
     # (4x/16x/32x less transfer) and exact-re-ranks gathered candidates
-    from fastpyvectordb_tpu.core.outofcore import (
+    from fastpyvectordb_jax.core.outofcore import (
         OutOfCoreSearcher,
         QuantizedOutOfCoreSearcher,
     )
@@ -231,7 +232,7 @@ def demo_prewarm():
     col.enable_quantized_scan("int8", tune=False)
     t = col.prewarm(max_batch=8)
     print(f"  compiled {len(t)} serving shapes "
-          f"(also: create_app(prewarm=N), python -m fastpyvectordb_tpu.prime)")
+          f"(also: create_app(prewarm=N), python -m fastpyvectordb_jax.prime)")
     assert any(k.startswith("exact_") for k in t)
     assert any(k.startswith("quantized_") for k in t)
 
@@ -244,7 +245,7 @@ def main():
     demo_ivfpq()
     demo_tune_rerank()
     demo_router()
-    demo_beyond_hbm()
+    demo_beyond_device_memory()
     demo_prewarm()
     print("\nAll production-ops demos passed.")
 

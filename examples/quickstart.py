@@ -2,7 +2,7 @@
 
 Mirrors the reference's examples/quickstart.py:27-307 flow — basic usage,
 filtering, CRUD, batch ops, multiple collections, provider selection,
-peek/get-all, cleanup — on the TPU-native engine, plus the TPU-specific
+peek/get-all, cleanup — on the device engine, plus the device-specific
 sections the reference doesn't have (exact-vs-ANN-vs-quantized tiers).
 
 Runs offline with the hashing embedder; pass --provider to use
@@ -15,7 +15,7 @@ import shutil
 import time
 from pathlib import Path
 
-from fastpyvectordb_tpu.api import Client
+from fastpyvectordb_jax.api import Client
 
 BAR = "=" * 60
 
@@ -32,12 +32,12 @@ def basic_usage(client):
     col.add(
         documents=[
             "JAX traces Python functions and compiles them with XLA",
-            "The TPU matrix unit multiplies 128x128 tiles per cycle",
+            "GPU tensor cores multiply matrix tiles every cycle",
             "Good pasta water should taste like the sea",
             "Index funds passively track a market benchmark",
             "Attention layers mix information across sequence positions",
         ],
-        ids=["jax", "tpu", "pasta", "funds", "attention"],
+        ids=["jax", "gpu", "pasta", "funds", "attention"],
         metadatas=[
             {"category": "ml", "difficulty": "intermediate", "year": 2024},
             {"category": "hw", "difficulty": "advanced", "year": 2023},
@@ -46,8 +46,8 @@ def basic_usage(client):
             {"category": "ml", "difficulty": "advanced", "year": 2024},
         ])
     print(f"added {col.count} documents")
-    res = col.query("how does TPU hardware multiply matrices?", n_results=3)
-    print("query: 'how does TPU hardware multiply matrices?'")
+    res = col.query("how does GPU hardware multiply matrices?", n_results=3)
+    print("query: 'how does GPU hardware multiply matrices?'")
     for rid, doc, dist in zip(res.ids[0], res.documents[0],
                               res.distances[0]):
         print(f"  {rid:10s} d={dist:.4f}  {doc[:58]}")
@@ -138,7 +138,7 @@ def providers(client):
 
 
 def search_tiers(col):
-    _hr("7. SEARCH TIERS (TPU-specific)")
+    _hr("7. SEARCH TIERS (device-specific)")
     inner = col._collection
     res = col.query("neural attention", n_results=2)
     print("exact scan      :", res.ids[0])

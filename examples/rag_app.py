@@ -6,7 +6,7 @@ categories / tags, index it into a vector collection plus a quantized
 store plus a knowledge graph, expose a multi-method ``search()``
 (exact | quantized | ann | hybrid-with-graph-expansion), run an in-app
 latency benchmark, and finish with copy-paste API examples.  Rebuilt on
-this framework's TPU-native engine: the "parallel search" method of the
+this framework's device engine: the "parallel search" method of the
 reference maps to the fused batch kernel, and quantized search is the
 two-stage int8 scan rather than a host-side numpy loop.
 
@@ -21,11 +21,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from fastpyvectordb_tpu import CollectionConfig, Filter
-from fastpyvectordb_tpu.core.collection import Collection
-from fastpyvectordb_tpu.embeddings import HashingEmbedder
-from fastpyvectordb_tpu.graphdb import GraphDB
-from fastpyvectordb_tpu.profiling import QueryTimer
+from fastpyvectordb_jax import CollectionConfig, Filter
+from fastpyvectordb_jax.core.collection import Collection
+from fastpyvectordb_jax.embeddings import HashingEmbedder
+from fastpyvectordb_jax.graphdb import GraphDB
+from fastpyvectordb_jax.profiling import QueryTimer
 
 BAR = "=" * 68
 

@@ -1,9 +1,9 @@
 """RAG command-line app: ingest documents, retrieve with hybrid search,
-answer with an optional LLM — the TPU-stack rendition of the reference's
+answer with an optional LLM — the JAX-stack rendition of the reference's
 RAG CLI (examples/rag_example.py:1-18).
 
     python examples/rag_cli.py ingest path/to/docs/ --db ./rag_db
-    python examples/rag_cli.py ask "what is the MXU?" --db ./rag_db
+    python examples/rag_cli.py ask "what are tensor cores?" --db ./rag_db
     python examples/rag_cli.py chat --db ./rag_db        # interactive
 
 Capabilities demonstrated end-to-end:
@@ -27,9 +27,9 @@ from pathlib import Path
 
 import numpy as np
 
-from fastpyvectordb_tpu.core.types import CollectionConfig
-from fastpyvectordb_tpu.embeddings import get_embedder
-from fastpyvectordb_tpu.hybrid import HybridCollection
+from fastpyvectordb_jax.core.types import CollectionConfig
+from fastpyvectordb_jax.embeddings import get_embedder
+from fastpyvectordb_jax.hybrid import HybridCollection
 
 SAMPLE_DOCS = {
     "jax.md": (
@@ -39,13 +39,14 @@ SAMPLE_DOCS = {
         "auto-vectorization, and shard_map for SPMD programming over a "
         "device mesh. Under jit, Python control flow is traced once; "
         "data-dependent branching needs lax.cond or lax.while_loop."),
-    "tpu.md": (
-        "TPU architecture\n\nA TPU chip couples a 128x128 systolic-array "
-        "matrix unit (the MXU) with a vector unit and high-bandwidth "
-        "memory. Peak throughput comes from large, aligned bfloat16 "
-        "matrix multiplies; HBM bandwidth is the usual bottleneck, so "
-        "compilers fuse elementwise work into the matmuls. Chips are "
-        "linked by ICI into pods and programmed with collectives."),
+    "gpu.md": (
+        "GPU architecture\n\nAn NVIDIA H100 couples 132 streaming "
+        "multiprocessors, each with tensor cores for matrix multiplies, "
+        "to 80 GB of high-bandwidth memory. Peak throughput comes from "
+        "large bfloat16 or int8 matrix multiplies on the tensor cores; "
+        "memory bandwidth is the usual bottleneck, so compilers fuse "
+        "elementwise work into the matmuls. Cards are linked by NVLink "
+        "and programmed with collectives."),
     "vectordb.md": (
         "Vector search\n\nA vector database stores embeddings and serves "
         "nearest-neighbor queries. Exact search is a distance matmul plus "

@@ -8,20 +8,20 @@ import textwrap
 
 import numpy as np
 
-from fastpyvectordb_tpu.api import Client
+from fastpyvectordb_jax.api import Client
 
 CORPUS = {
     "jax-intro": """JAX is a library for array-oriented numerical computation.
         It provides composable transformations of Python functions: grad for
         differentiation, jit for XLA compilation, vmap for vectorization and
         pmap for parallelization across devices.""",
-    "tpu-arch": """A TPU chip contains a matrix multiply unit (MXU) — a
-        128x128 systolic array — a vector processing unit, and high
-        bandwidth memory. Programs are compiled by XLA, which fuses
-        elementwise operations into matrix multiplies.""",
+    "gpu-arch": """A GPU multiplies matrices on its tensor cores, spread
+        over many streaming multiprocessors that share high bandwidth
+        memory. Programs are compiled by XLA, which fuses elementwise
+        operations into matrix multiplies.""",
     "pallas": """Pallas is a JAX extension for writing custom kernels. On
-        TPU, kernels stage data from HBM into VMEM blocks and may use
-        async copies and semaphores for fine-grained pipelines.""",
+        a GPU, kernels stage tiles from device memory into shared memory
+        and may use asynchronous copies and barriers for pipelines.""",
     "cooking": """To make a simple tomato sauce, soften onions in olive
         oil, add garlic, crushed tomatoes, salt, and simmer gently.""",
 }
@@ -53,7 +53,7 @@ def main():
     print(f"indexed {col.count} chunks from {len(CORPUS)} documents")
 
     # 2. retrieve with a source filter (no recipes in the context!)
-    question = "How does the TPU multiply matrices and what compiles to it?"
+    question = "How does the GPU multiply matrices and what compiles to it?"
     res = col.query(question, n_results=3,
                     where={"source": {"$ne": "cooking"}})
 
@@ -75,8 +75,8 @@ def main():
     # 4. the LLM call would go here; we assert retrieval quality instead
     sources = {m["source"] for m in res.metadatas[0]}
     assert "cooking" not in sources
-    assert "tpu-arch" in sources
-    print("\nretrieval OK: tpu-arch retrieved, cooking filtered out")
+    assert "gpu-arch" in sources
+    print("\nretrieval OK: gpu-arch retrieved, cooking filtered out")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Retrieval-quality walkthrough: does the engine find what it should?
 
-The TPU rendition of the reference's retrieval demo
+The device rendition of the reference's retrieval demo
 (examples/retrieval_demo.py:1-40): a small clustered corpus, pairwise
 similarity sanity checks, expected-hit retrieval tests scored as a recall
 percentage, filtered retrieval, hybrid (vector + BM25) comparison, and an
@@ -20,9 +20,9 @@ import tempfile
 
 import numpy as np
 
-from fastpyvectordb_tpu import Filter, VectorDB
-from fastpyvectordb_tpu.embeddings import get_embedder
-from fastpyvectordb_tpu.hybrid import BM25Index
+from fastpyvectordb_jax import Filter, VectorDB
+from fastpyvectordb_jax.embeddings import get_embedder
+from fastpyvectordb_jax.hybrid import BM25Index
 
 BAR = "=" * 68
 

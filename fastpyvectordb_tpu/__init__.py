@@ -1,47 +1,13 @@
-"""fastpyvectordb_tpu — a TPU-native vector index-and-query framework.
+"""Former import name of ``fastpyvectordb_jax``, kept as a deprecated alias.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-FastPyVectorDB (reference: jcolano/fastpyvectordb): device-resident exact
-search on the MXU with fused filter masks and top-k, quantized scans
-(int8 / binary Hamming / PQ) as Pallas kernels, IVF ANN, shard_map
-multi-chip distributed search, plus host-side feature layers (embedders,
-BM25 hybrid search, property graph, realtime events, REST/WS serving) and a
-ChromaDB-style high-level client.
+Importing it, or any submodule under it, gives the ``fastpyvectordb_jax``
+modules themselves.  New code imports ``fastpyvectordb_jax``.
 """
 
-from .core.types import (  # noqa: F401
-    CollectionConfig,
-    DistanceMetric,
-    SearchResult,
-)
-from .core.filters import Filter, FilterOp  # noqa: F401
-from .core.collection import Collection  # noqa: F401
-from .core.bigcollection import BigCollection  # noqa: F401
-from .core.vectordb import VectorDB  # noqa: F401
+import warnings
 
-__version__ = "0.1.0"
+from fastpyvectordb_jax._alias import install
 
-__all__ = [
-    "CollectionConfig",
-    "DistanceMetric",
-    "SearchResult",
-    "Filter",
-    "FilterOp",
-    "Collection",
-    "BigCollection",
-    "VectorDB",
-    "__version__",
-]
-
-
-def __getattr__(name):
-    # Lazy imports for the heavier feature layers so `import fastpyvectordb_tpu`
-    # stays cheap and optional deps (aiohttp, sentence-transformers) aren't
-    # touched until used.
-    if name in ("Client", "QueryResult", "GetResult"):
-        from . import api
-        return getattr(api, name)
-    if name in ("get_embedder", "MockEmbedder", "Embedder"):
-        from . import embeddings
-        return getattr(embeddings, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+warnings.warn(f"{__name__} is deprecated; import fastpyvectordb_jax",
+              DeprecationWarning, stacklevel=2)
+install(__name__)

@@ -16,10 +16,10 @@ from pathlib import Path
 
 import jax
 
-# default to the CPU backend (fast startup); pass --tpu to run on device.
-# (Calling jax.devices() first would initialize the TPU backend and lock
-# the platform choice.)
-if "--tpu" not in sys.argv:
+# default to the CPU backend (fast startup); pass --gpu to run on the card.
+# (Calling jax.devices() first would initialize the default backend and
+# lock the platform choice.)
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
@@ -61,7 +61,7 @@ class TestResults:
 
 
 def suite_vectordb(t: TestResults, tmp: Path):
-    import fastpyvectordb_tpu as fvdb
+    import fastpyvectordb_jax as fvdb
     rng = np.random.default_rng(0)
     v = rng.standard_normal((200, 32)).astype(np.float32)
 
@@ -113,7 +113,7 @@ def suite_vectordb(t: TestResults, tmp: Path):
 
 
 def suite_graph(t: TestResults, tmp: Path):
-    from fastpyvectordb_tpu.graphdb import GraphDB
+    from fastpyvectordb_jax.graphdb import GraphDB
 
     def crud_indexes():
         g = GraphDB()
@@ -144,7 +144,7 @@ def suite_graph(t: TestResults, tmp: Path):
 
 
 def suite_hybrid_graph(t: TestResults, tmp: Path):
-    from fastpyvectordb_tpu.graphdb.hybrid import HybridGraphVectorDB
+    from fastpyvectordb_jax.graphdb.hybrid import HybridGraphVectorDB
 
     def seeds_and_expansion():
         db = HybridGraphVectorDB(dimensions=8)
@@ -160,7 +160,7 @@ def suite_hybrid_graph(t: TestResults, tmp: Path):
 
 
 def suite_persistence(t: TestResults, tmp: Path):
-    from fastpyvectordb_tpu.persist.format import (
+    from fastpyvectordb_jax.persist.format import (
         StreamingVectorReader, StreamingVectorWriter, compress_vectors,
         decompress_vectors, load_container, save_container)
     rng = np.random.default_rng(1)
@@ -190,12 +190,12 @@ def suite_persistence(t: TestResults, tmp: Path):
 
 
 def suite_bm25(t: TestResults, tmp: Path):
-    from fastpyvectordb_tpu.hybrid import BM25Index
+    from fastpyvectordb_jax.hybrid import BM25Index
 
     def alpha_sweep():
-        from fastpyvectordb_tpu import CollectionConfig
-        from fastpyvectordb_tpu.embeddings import HashingEmbedder
-        from fastpyvectordb_tpu.hybrid import HybridCollection
+        from fastpyvectordb_jax import CollectionConfig
+        from fastpyvectordb_jax.embeddings import HashingEmbedder
+        from fastpyvectordb_jax.hybrid import HybridCollection
         emb = HashingEmbedder(32)
         col = HybridCollection(CollectionConfig(name="h", dimensions=32),
                                text_fields=["t"])
@@ -219,7 +219,7 @@ def suite_bm25(t: TestResults, tmp: Path):
 
 
 def suite_perf(t: TestResults, tmp: Path):
-    import fastpyvectordb_tpu as fvdb
+    import fastpyvectordb_jax as fvdb
     rng = np.random.default_rng(2)
     n, d = 5_000, 128
     v = rng.standard_normal((n, d)).astype(np.float32)
@@ -263,8 +263,8 @@ def suite_perf(t: TestResults, tmp: Path):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--skip-perf", action="store_true")
-    p.add_argument("--tpu", action="store_true",
-                   help="run on the TPU backend instead of CPU")
+    p.add_argument("--gpu", action="store_true",
+                   help="run on the GPU backend instead of CPU")
     args = p.parse_args()
 
     t = TestResults()

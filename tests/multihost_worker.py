@@ -28,11 +28,11 @@ def main() -> None:
     # initialize the distributed runtime BEFORE importing the package —
     # module-level jax use anywhere in the import graph would pin the
     # local-only XLA backend and make initialize() refuse to run
-    from fastpyvectordb_tpu.dist import multihost
+    from fastpyvectordb_jax.dist import multihost
     multihost.initialize(coordinator_address=f"localhost:{port}",
                          num_processes=nproc, process_id=pid)
-    from fastpyvectordb_tpu.core.types import DistanceMetric
-    from fastpyvectordb_tpu.dist.sharded import build_sharded_search
+    from fastpyvectordb_jax.core.types import DistanceMetric
+    from fastpyvectordb_jax.dist.sharded import build_sharded_search
     assert jax.process_count() == nproc, jax.process_count()
     assert len(jax.devices()) == nproc * 2, len(jax.devices())
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig, Filter
+from fastpyvectordb_jax import Collection, CollectionConfig, Filter
 
 
 @pytest.fixture(scope="module")
@@ -88,8 +88,7 @@ def test_filtered_slot_masks_memoized_per_filter(built):
     """A REPEATED filter must not re-pay the slot gather: ok_slot_masks
     memoizes the filtered (okc, oko) per host-mask identity, which is
     stable because Collection._filter_mask caches the mask per
-    (fingerprint, version).  The memo measured as the difference between
-    0.7 ms and 40 ms per 4M grouped dispatch (ROADMAP #25)."""
+    (fingerprint, version)."""
     col, v, q = built
     f = Filter.eq("g", 3)
     res1 = col.search_batch(q[:4], k=8, filter=f, exact=False)
@@ -151,8 +150,8 @@ def test_insert_served_incrementally_without_rebuild(built, rng):
 
 
 def test_ann_persistence_roundtrip(tmp_path, rng):
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
     v = rng.standard_normal((500, 16)).astype(np.float32)
     col = Collection(CollectionConfig(name="p", dimensions=16, metric="l2"),
                      base_path=tmp_path / "p")
@@ -169,8 +168,8 @@ def test_ann_persistence_roundtrip(tmp_path, rng):
 
 
 def test_graph_ann_persistence_roundtrip(tmp_path, rng):
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
     v = rng.standard_normal((400, 16)).astype(np.float32)
     col = Collection(CollectionConfig(name="g", dimensions=16, metric="l2"),
                      base_path=tmp_path / "g")
@@ -202,8 +201,8 @@ def test_batch_size_does_not_change_results(built):
 
 
 def test_ivf_int8_cells_recall_and_persistence(tmp_path, rng):
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
     import numpy as np
     n, d = 3000, 24
     centers = rng.standard_normal((24, d)).astype(np.float32) * 2
@@ -237,8 +236,8 @@ def test_encode_cells_matches_corpus_stats():
     encode + corpus_stats path did — bit-identical, since both run the
     same _encode / dequant arithmetic."""
     import jax.numpy as jnp
-    from fastpyvectordb_tpu.ann.ivf import _encode_cells
-    from fastpyvectordb_tpu.quant.scalar import (ScalarQuantizer, _encode,
+    from fastpyvectordb_jax.ann.ivf import _encode_cells
+    from fastpyvectordb_jax.quant.scalar import (ScalarQuantizer, _encode,
                                                  _train)
     rng = np.random.default_rng(3)
     n, d, nlist, cap = 1000, 32, 8, 256
@@ -266,8 +265,8 @@ def test_grouped_big_overflow_prereduce(built):
     pre-reduces it to k per query before the merge; planted overflow rows
     must still surface exactly."""
     import jax.numpy as jnp
-    from fastpyvectordb_tpu.ann.ivf_grouped import grouped_ivf_search_kernel
-    from fastpyvectordb_tpu.core.types import DistanceMetric
+    from fastpyvectordb_jax.ann.ivf_grouped import grouped_ivf_search_kernel
+    from fastpyvectordb_jax.core.types import DistanceMetric
     col, v, q = built
     idx = col._ann
     store = col._store
@@ -295,71 +294,12 @@ def test_grouped_big_overflow_prereduce(built):
     assert (rows[:, 0] == np.arange(8)).all(), rows[:, 0]
 
 
-def test_grouped_pallas_compaction_matches_xla(monkeypatch):
-    """The scalar-prefetch pallas dispatch (compact probed-cell grid,
-    kernels/pallas_ivf.py) must select the same rows as the XLA fallback
-    at identical inputs.  Runs the pallas path in interpret mode on CPU
-    with the TPU gate monkeypatched open."""
-    import functools
-
-    import jax.numpy as jnp
-
-    from fastpyvectordb_tpu.ann.ivf_grouped import grouped_ivf_search_kernel
-    from fastpyvectordb_tpu.core.types import CollectionConfig, DistanceMetric
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.kernels import pallas_ivf, pallas_quant
-
-    rng = np.random.default_rng(17)
-    n, d, nlist = 1500, 128, 32
-    centers = rng.standard_normal((8, d)).astype(np.float32) * 2
-    v = centers[rng.integers(0, 8, n)] + 0.3 * rng.standard_normal(
-        (n, d)).astype(np.float32)
-    col = Collection(CollectionConfig(name="annp", dimensions=d, metric="l2"))
-    col.insert_batch(v, [f"v{i}" for i in range(n)])
-    col.build_ann(nlist=nlist, nprobe=4, iters=4)
-    idx, store = col._ann, col._store
-    assert idx.cells.shape[1] % 128 == 0  # pallas gate precondition
-
-    cells_bf = idx.cells.astype(jnp.bfloat16)
-    okc, oko = idx._ok_cached()
-    args = (jnp.asarray(v[:8]), idx.centroids, cells_bf, idx.row_table,
-            jnp.zeros((0, d), jnp.bfloat16), jnp.zeros((0,), jnp.int32),
-            okc, oko[:0], jnp.zeros((d,), jnp.float32),
-            jnp.ones((d,), jnp.float32), idx._cell_norms_cached())
-    kw = dict(metric=DistanceMetric.L2, k=10, nprobe=4, qcap=32)
-
-    grouped_ivf_search_kernel.clear_cache()
-    d_x, r_x, drop_x = (np.asarray(a) for a in
-                        grouped_ivf_search_kernel(*args, **kw))
-    try:
-        monkeypatch.setattr(pallas_quant, "on_tpu", lambda: True)
-        monkeypatch.setattr(
-            pallas_ivf, "grouped_cell_scores",
-            functools.partial(pallas_ivf.grouped_cell_scores,
-                              interpret=True))
-        monkeypatch.setattr(
-            pallas_ivf, "grouped_cell_scores_i8",
-            functools.partial(pallas_ivf.grouped_cell_scores_i8,
-                              interpret=True))
-        grouped_ivf_search_kernel.clear_cache()
-        d_p, r_p, drop_p = (np.asarray(a) for a in
-                            grouped_ivf_search_kernel(*args, **kw))
-    finally:
-        grouped_ivf_search_kernel.clear_cache()  # drop the patched trace
-
-    assert drop_x == drop_p == 0
-    np.testing.assert_allclose(d_p, d_x, atol=1e-2)
-    mism = r_p != r_x
-    if mism.any():  # rows may differ only on exact-score ties
-        np.testing.assert_allclose(d_p[mism], d_x[mism], atol=1e-2)
-
-
 def test_ivf_rerank_knob_grouped_and_perquery(tmp_path, rng):
     """int8-cell IVF ships rerank=4 by default (exact re-rank of the
     quantized top-c recovers ordering the int8 scores scramble); the knob
     threads through both dispatches, set_search_params, and persistence."""
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
     n, d = 3000, 24
     centers = rng.standard_normal((24, d)).astype(np.float32) * 2
     v = centers[rng.integers(0, 24, n)] + 0.3 * rng.standard_normal(

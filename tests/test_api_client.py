@@ -4,7 +4,7 @@ tests/test_client.py coverage of lifecycle/add/query/get/update/delete)."""
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.api import Client
+from fastpyvectordb_jax.api import Client
 
 
 @pytest.fixture()
@@ -41,7 +41,7 @@ class TestClientLifecycle:
         assert client.list_collections() == []
 
     def test_dims_mismatch_rejected(self, client):
-        from fastpyvectordb_tpu.embeddings import MockEmbedder
+        from fastpyvectordb_jax.embeddings import MockEmbedder
         client.create_collection("a")  # mock default 384
         # a different-dims embedder cannot open the collection
         client._embedders["mock:small"] = MockEmbedder(16)

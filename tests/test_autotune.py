@@ -11,8 +11,8 @@ configuration of every approximate path serves >=0.9 recall.
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.core.collection import Collection
-from fastpyvectordb_tpu.core.types import CollectionConfig
+from fastpyvectordb_jax.core.collection import Collection
+from fastpyvectordb_jax.core.types import CollectionConfig
 
 
 N, D, B, K = 8192, 64, 16, 10

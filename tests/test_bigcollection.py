@@ -1,11 +1,11 @@
-"""BigCollection: host vectors + device codes for beyond-HBM corpora
-(the TPU rendition of the reference's >10M mmap+binary+re-rank tier,
+"""BigCollection: host vectors + device codes for corpora beyond device
+memory (the device rendition of the reference's >10M mmap+binary+re-rank tier,
 README.md:571-578, parallel_search.py:427-750, 895-947)."""
 
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import BigCollection, Filter
+from fastpyvectordb_jax import BigCollection, Filter
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +123,7 @@ def test_save_after_load_without_insert(tmp_path):
     """save() right after _load() must not truncate the vectors file that
     self._vectors still memory-maps (load -> delete -> save -> reload)."""
     import numpy as np
-    from fastpyvectordb_tpu.core.bigcollection import BigCollection
+    from fastpyvectordb_jax.core.bigcollection import BigCollection
     rng = np.random.default_rng(0)
     v = rng.standard_normal((64, 16)).astype(np.float32)
     col = BigCollection(16, codec="binary", base_path=tmp_path / "bc")

@@ -4,7 +4,7 @@ vectordb_optimized.py CRUD/search/persistence semantics)."""
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import (
+from fastpyvectordb_jax import (
     Collection,
     CollectionConfig,
     DistanceMetric,
@@ -219,7 +219,7 @@ def test_topk_approx_config(rng):
 
 
 def test_search_quantized_empty_collection():
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     col = Collection(CollectionConfig(name="eq", dimensions=8, metric="l2"))
     out = col.search_quantized(np.zeros((2, 8), np.float32), k=3)
     assert out == [[], []]
@@ -228,7 +228,7 @@ def test_search_quantized_empty_collection():
 def test_search_quantized_no_rerank_tail_merge_units():
     """With rerank<=1 the coarse scan returns squared-L2 (int8) scores;
     merging them against the exact sqrt'd tail must not misorder."""
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(3)
     col = Collection(CollectionConfig(name="um", dimensions=16,
                                       metric="l2"))
@@ -249,7 +249,7 @@ def test_search_quantized_no_rerank_tail_merge_units():
 def test_ann_drift_rebuild_keeps_build_params():
     """The drift-triggered rebuild must reuse the caller's build kwargs
     (spill_choices etc.), not silently fall back to defaults."""
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(5)
     col = Collection(CollectionConfig(name="bp", dimensions=8, metric="l2"))
     col.insert_batch(rng.standard_normal((600, 8)).astype(np.float32),
@@ -268,7 +268,7 @@ def test_ann_drift_rebuild_keeps_build_params():
 def test_prewarm_compiles_enabled_paths():
     """prewarm() dispatches every pow2 batch size for each enabled mode
     (the deployment-startup compile-cache priming hook, ROADMAP #11)."""
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(9)
     col = Collection(CollectionConfig(name="pw", dimensions=8, metric="l2"))
     assert col.prewarm() == {}  # empty collection: nothing to compile
@@ -292,7 +292,7 @@ def test_prewarm_covers_non_pow2_max_batch():
     """store.search pads every batch to the next pow2, so prewarm must
     compile the COVERING bucket of a non-pow2 max_batch (3 -> 4), not
     stop below it."""
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(1)
     col = Collection(CollectionConfig(name="pw2", dimensions=8, metric="l2"))
     col.insert_batch(rng.standard_normal((100, 8)).astype(np.float32),
@@ -302,13 +302,10 @@ def test_prewarm_covers_non_pow2_max_batch():
 
 
 def test_optimize_installs_cheapest_eligible_mode(tmp_path):
-    """optimize() picks the mode with the lowest roofline cost estimate
+    """optimize() picks the mode with the lowest measured time per query
     among those clearing the recall target, installs it as the search()
-    default, and the choice survives save/load.  (Round-4 verdict #3:
-    ranking switched from bytes/query to a compute-aware cost — at this
-    tiny 5k x 32 profile the exact GEMM is honestly the cheapest mode,
-    where the old bytes-only ranking claimed the two-stage scan was.)"""
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    default, and the choice survives save/load."""
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(7)
     n, d = 5000, 32
     v = rng.standard_normal((n, d)).astype(np.float32)
@@ -319,16 +316,16 @@ def test_optimize_installs_cheapest_eligible_mode(tmp_path):
     report = col.optimize(target_recall=0.9, k=5)
     assert report["exact"]["eligible"]
     assert report["quantized"]["recall"] >= 0.9
-    # every mode carries both cost fields the report contract promises
+    # every mode carries the fields the report contract promises
     for mode in ("exact", "quantized"):
-        assert report[mode]["cost_us_model"] > 0
+        assert report[mode]["us_per_query"] > 0
         assert report[mode]["bytes_per_query"] > 0
-    # the installed mode is the argmin of the ranking cost among eligible
+        assert report[mode]["flops_per_query"] > 0
+    # the installed mode is the fastest measured among the eligible
     eligible = {m: v for m, v in report.items()
                 if isinstance(v, dict) and v.get("eligible")}
-    rank = lambda m: eligible[m].get(  # noqa: E731
-        "cost_us_measured", eligible[m]["cost_us_model"])
-    assert report["installed"] == min(eligible, key=rank)
+    assert report["installed"] == min(
+        eligible, key=lambda m: eligible[m]["us_per_query"])
     # the installed default actually routes search() correctly
     hits = col.search(v[11], k=3)
     assert hits[0].id == "v11"
@@ -344,7 +341,7 @@ def test_optimize_installs_cheapest_eligible_mode(tmp_path):
 
 
 def test_optimize_tiny_corpus_stays_exact():
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(8)
     col = Collection(CollectionConfig(name="opt2", dimensions=8,
                                       metric="cosine"))
@@ -358,14 +355,13 @@ def test_optimize_tiny_corpus_stays_exact():
 
 
 def test_optimize_ranks_ivfpq_by_cost_not_bytes(tmp_path):
-    """With an IVF-PQ index built, optimize() must report BOTH the bytes
-    estimate (where IVF-PQ looks cheapest — codes are ~M/D of the store
-    row and only the probed fraction streams) and the roofline cost
-    (where the ADC one-hot's M*K MACs/row count), and rank by the
-    latter (round-4 verdict #3: the bytes-only ranking installed a ~5x
-    slower default at 1M x 768 on chip).  Whatever wins, the installed
-    choice must be the cost argmin and survive save/load."""
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    """With an IVF-PQ index built, optimize() reports the bytes per query
+    (where IVF-PQ looks cheapest — codes are ~M/D of the store row and
+    only the probed fraction streams) and the flops per query (where the
+    ADC one-hot's M*K MACs/row count), but ranks by the measured time.
+    Whatever wins, the installed choice must be the measured argmin and
+    survive save/load."""
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(9)
     n, d = 6000, 64
     v = rng.standard_normal((n, d)).astype(np.float32)
@@ -377,16 +373,20 @@ def test_optimize_ranks_ivfpq_by_cost_not_bytes(tmp_path):
     col.build_ann("ivfpq", nlist=64, m=16, tune_target=0.9)
     report = col.optimize(target_recall=0.9, k=5, build=False)
     assert "ann" in report and "quantized" in report
-    # bytes view: IVF-PQ is the smallest stream (that part was true)
-    assert (report["ann"]["bytes_per_query"]
-            < report["quantized"]["bytes_per_query"]
-            < report["exact"]["bytes_per_query"])
-    # ...but the ranking must be the cost estimate, not bytes
+    # bytes view: the exact scan streams the f32 corpus once per
+    # serving batch (optimize's default serving_batch=256)
+    assert report["exact"]["bytes_per_query"] == pytest.approx(
+        n * d * 4 / 256)
+    # ...and its one-hot ADC does more flops per row than its bytes say
+    assert (report["ann"]["flops_per_query"]
+            / report["ann"]["bytes_per_query"]
+            > report["exact"]["flops_per_query"]
+            / report["exact"]["bytes_per_query"])
+    # ...but the ranking is the measured time, not either estimate
     eligible = {m: v for m, v in report.items()
                 if isinstance(v, dict) and v.get("eligible")}
-    rank = lambda m: eligible[m].get(  # noqa: E731
-        "cost_us_measured", eligible[m]["cost_us_model"])
-    assert report["installed"] == min(eligible, key=rank)
+    assert report["installed"] == min(
+        eligible, key=lambda m: eligible[m]["us_per_query"])
     hits = col.search(v[42], k=3)
     assert hits[0].id == "v42"
     col.save()
@@ -397,30 +397,41 @@ def test_optimize_ranks_ivfpq_by_cost_not_bytes(tmp_path):
     assert col2.search(v[42], k=3)[0].id == "v42"
 
 
-def test_costmodel_matches_r4_measured_ordering():
-    """The roofline model must reproduce the round-4 CHIP ordering at the
-    1M x 768 / B=1024 headline profile (benchmarks/results_r4_tpu.json):
-    int8 two-stage (7.5 us/q measured) ≈ exact bf16 (8.5) both far below
-    IVF-PQ deep-rerank (53 us/q, np16 rr128 m=192 K=16) — the exact
-    misranking the bytes-only model produced.  Graph beam search must
-    rank worst (65 ms B=1 measured)."""
-    from fastpyvectordb_tpu.core import costmodel as cm
+@pytest.mark.parametrize("mode", ["exact", "int8", "pq", "ivf", "ivfpq",
+                                  "graph"])
+def test_costmodel_counts_work_from_shapes(mode):
+    """The cost model counts bytes and flops per query from shapes alone:
+    check each mode against its formula at 1M x 768, B=1024."""
+    from fastpyvectordb_jax.core import costmodel as cm
     n, d, b = 1_000_000, 768, 1024
-    exact = cm.exact_cost(n, d, 2, "bfloat16", b).cost_us
-    int8 = cm.quantized_cost(n, d, "int8", d, 2, 40, b).cost_us
-    ivfpq = cm.ivf_cost(n, d, 192, 2048, 16, 0, 2, 1280, b,
-                        pq_k=16).cost_us
-    graph = cm.graph_cost(d, 2, 128, 16, 4, 32).cost_us
-    # ordering: the two scan modes are within 2x of each other and both
-    # at least 3x cheaper than IVF-PQ deep; graph is worst by far
-    assert max(exact, int8) < 2 * min(exact, int8)
-    assert ivfpq > 3 * max(exact, int8)
-    assert graph > ivfpq
-    # absolute anchors stay within 2x of the measured chip numbers so the
-    # constants cannot silently drift into fiction
-    assert 4 < exact < 17      # measured 8.5 us/q
-    assert 4 < int8 < 15       # measured 7.5 us/q
-    assert 20 < ivfpq < 106    # measured 53 us/q
+    if mode == "exact":
+        mc = cm.exact_cost(n, d, 2, b)
+        want_bytes, want_flops = n * d * 2 / b, 2.0 * n * d
+    elif mode == "int8":
+        mc = cm.quantized_cost(n, d, "int8", d, 2, 40, b)
+        want_bytes = n * d / b + 40 * d * 2
+        want_flops = 2.0 * n * d + 2.0 * 40 * d
+    elif mode == "pq":
+        mc = cm.quantized_cost(n, d, "pq", 96, 2, 40, b, pq_k=256)
+        want_bytes = n * 96 / b + 40 * d * 2
+        want_flops = 2.0 * n * 96 * 256 + 2.0 * 40 * d
+    elif mode == "ivf":
+        mc = cm.ivf_cost(n, d, d, 2048, 8, 0, 2, 40, b)
+        rows = 8 / 2048 * n * 1.25
+        want_bytes = n * 1.25 * d / b + 40 * d * 2   # every cell touched
+        want_flops = 2.0 * rows * d + 2.0 * 2048 * d + 2.0 * 40 * d
+    elif mode == "ivfpq":
+        mc = cm.ivf_cost(n, d, 192, 2048, 16, 0, 2, 1280, b, pq_k=16)
+        rows = 16 / 2048 * n * 1.25
+        want_bytes = n * 1.25 * 192 / b + 1280 * d * 2
+        want_flops = (2.0 * rows * 192 * 16 + 2.0 * 2048 * d
+                      + 2.0 * 1280 * d)
+    else:
+        mc = cm.graph_cost(d, 2, 128, 16, 4, 32)
+        rows = 16 * 128 * 4 * 32
+        want_bytes, want_flops = rows * d * 2, 2.0 * rows * d
+    assert mc.bytes == pytest.approx(want_bytes)
+    assert mc.flops == pytest.approx(want_flops)
 
 
 def test_search_arrays_stream_matches_sync(rng):

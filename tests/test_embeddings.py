@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.embeddings import (
+from fastpyvectordb_jax.embeddings import (
     CachedEmbedder,
     HashingEmbedder,
     JaxTransformerEmbedder,
@@ -75,18 +75,18 @@ def test_jax_embedder_save_load(tmp_path):
                                atol=1e-5)
 
 
-def test_factory():
+def test_factory(tmp_path):
     assert get_embedder("mock").model_name.startswith("mock")
     assert get_embedder("hashing").dimensions == 384
     with pytest.raises(ValueError):
         get_embedder("nope")
-    cached = get_embedder("mock", cache=True, cache_dir="/tmp/fvdbt_cache")
+    cached = get_embedder("mock", cache=True, cache_dir=str(tmp_path))
     assert isinstance(cached, CachedEmbedder)
 
 
 def test_embedding_collection():
-    from fastpyvectordb_tpu import Collection, CollectionConfig
-    from fastpyvectordb_tpu.embeddings import EmbeddingCollection
+    from fastpyvectordb_jax import Collection, CollectionConfig
+    from fastpyvectordb_jax.embeddings import EmbeddingCollection
     ec = EmbeddingCollection(
         Collection(CollectionConfig(name="e", dimensions=64)),
         HashingEmbedder(64))
@@ -105,7 +105,7 @@ def test_embedding_collection():
 
 
 def test_query_timer():
-    from fastpyvectordb_tpu.profiling import QueryTimer
+    from fastpyvectordb_jax.profiling import QueryTimer
     t = QueryTimer(capacity=8)
     for _ in range(20):
         with t.measure():

@@ -34,10 +34,10 @@ def test_rag_cli_sample_ask_persist(tmp_path, capsys, monkeypatch):
     out1 = capsys.readouterr().out
     assert "ingested" in out1
     # fresh invocation reloads the persisted index from disk
-    rag_cli.main(["ask", "what is the MXU made of?", "--db", db])
+    rag_cli.main(["ask", "what are the tensor cores for?", "--db", db])
     out2 = capsys.readouterr().out
     assert "retrieved:" in out2
-    assert "tpu.md#0" in out2
+    assert "gpu.md#0" in out2
     assert "extractive answer" in out2
 
 
@@ -82,7 +82,7 @@ def test_production_ops_example(capsys, monkeypatch):
 
 
 def test_prime_tool_small(tmp_path, capsys):
-    from fastpyvectordb_tpu.prime import main as prime_main
+    from fastpyvectordb_jax.prime import main as prime_main
     prime_main(["--dims", "16", "--rows", "512", "--max-batch", "16",
                 "--modes", "exact", "--k", "5",
                 "--cache", str(tmp_path / "cache")])

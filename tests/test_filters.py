@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.core.filters import (
+from fastpyvectordb_jax.core.filters import (
     ColumnView,
     Filter,
     filter_from_tree,
@@ -130,7 +130,7 @@ def test_column_sync_appended():
 
 def test_collection_append_sync_path(tmp_path):
     import numpy as np
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(0)
     col = Collection(CollectionConfig(name="c", dimensions=8))
     col.insert_batch(rng.standard_normal((10, 8)).astype(np.float32),
@@ -158,7 +158,7 @@ def test_collection_append_sync_path(tmp_path):
 
 def _mask_eq_eval(rows, filt):
     """mask() and evaluate() must agree row-by-row."""
-    from fastpyvectordb_tpu.core.filters import ColumnView
+    from fastpyvectordb_jax.core.filters import ColumnView
     import numpy as np
     cv = ColumnView(rows)
     m = filt.mask(cv)
@@ -167,27 +167,27 @@ def _mask_eq_eval(rows, filt):
 
 
 def test_mask_matches_evaluate_mixed_in_list():
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     rows = [{"f": "1"}, {"f": "2"}, {"f": "a"}]
     _mask_eq_eval(rows, Filter.in_("f", [1, "a"]))  # '1' must NOT match 1
     _mask_eq_eval(rows, Filter.nin("f", [1, "a"]))
 
 
 def test_mask_matches_evaluate_str_in_target():
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     rows = [{"f": "ab"}, {"f": "zz"}]
     # evaluate uses substring semantics for a plain-str target
     _mask_eq_eval(rows, Filter.in_("f", "abc"))
 
 
 def test_mask_matches_evaluate_unhashable_elems():
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     rows = [{"f": [1, 2]}, {"f": [3]}, {"f": "x"}]
     _mask_eq_eval(rows, Filter.in_("f", [[1, 2], [3]]))
 
 
 def test_mask_matches_evaluate_none_values():
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     rows = [{"f": "x"}, {"f": None}, {"f": "y"}, {}]
     _mask_eq_eval(rows, Filter.eq("f", ""))
     _mask_eq_eval(rows, Filter.ne("f", "x"))
@@ -196,7 +196,7 @@ def test_mask_matches_evaluate_none_values():
 
 
 def test_mask_matches_evaluate_big_ints():
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     big = 2**63
     rows = [{"n": big}, {"n": 5}]
     _mask_eq_eval(rows, Filter.gt("n", big - 512))
@@ -204,7 +204,7 @@ def test_mask_matches_evaluate_big_ints():
 
 
 def test_from_dict_logical_combinators():
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     f = Filter.from_dict({"$or": [{"category": "food"},
                                   {"category": "finance"}]})
     assert f.evaluate({"category": "food"})
@@ -220,7 +220,7 @@ def test_mask_matches_evaluate_numpy_scalars_and_lossy_ints():
     """mask() fast paths must agree with evaluate() for numpy-scalar
     metadata values and for ints beyond float64's exact range."""
     import numpy as np
-    from fastpyvectordb_tpu.core.filters import ColumnView, Filter
+    from fastpyvectordb_jax.core.filters import ColumnView, Filter
     rows = [{"score": np.int64(7)}, {"score": 3}, {"score": np.float32(9.5)},
             {"x": 2**53}, {"x": 2**53 + 1}, {"price": 9.5}]
     cols = ColumnView(rows)

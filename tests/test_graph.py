@@ -3,7 +3,7 @@ persistence (parity: reference test_comprehensive.py suites 2)."""
 
 import pytest
 
-from fastpyvectordb_tpu.graphdb import GraphDB
+from fastpyvectordb_jax.graphdb import GraphDB
 
 
 @pytest.fixture()
@@ -150,7 +150,7 @@ class TestCypher:
         assert len(rows) == 2
 
     def test_parse_error(self, g):
-        from fastpyvectordb_tpu.graphdb import CypherError
+        from fastpyvectordb_jax.graphdb import CypherError
         with pytest.raises(CypherError):
             g.query("SELECT * FROM nodes")
 
@@ -186,7 +186,7 @@ def test_builders():
 
 class TestNativeTraversal:
     def test_khop_native_matches_python(self, g):
-        from fastpyvectordb_tpu import native
+        from fastpyvectordb_jax import native
         if not native.graph_available():
             pytest.skip("no C++ toolchain")
         py = sorted(g.khop_nodes(["alice"], 2, use_native=False))
@@ -201,8 +201,8 @@ class TestNativeTraversal:
         assert py == nat == [("alice", 0), ("bob", 1), ("carol", 2)]
 
     def test_native_shortest_path_on_large_graph(self):
-        from fastpyvectordb_tpu import native
-        import fastpyvectordb_tpu.graphdb.graph as gmod
+        from fastpyvectordb_jax import native
+        import fastpyvectordb_jax.graphdb.graph as gmod
         if not native.graph_available():
             pytest.skip("no C++ toolchain")
         g = GraphDB()
@@ -225,7 +225,7 @@ class TestNativeTraversal:
 
 
 def test_cypher_quoted_commas_and_and():
-    from fastpyvectordb_tpu.graphdb import GraphDB
+    from fastpyvectordb_jax.graphdb import GraphDB
     g = GraphDB()
     g.create_node(["Song"], {"title": "Rock AND Roll", "tag": "x, y"},
                   id="s1")
@@ -238,7 +238,7 @@ def test_cypher_quoted_commas_and_and():
 
 
 def test_cypher_zero_hop_var_length():
-    from fastpyvectordb_tpu.graphdb import GraphDB
+    from fastpyvectordb_jax.graphdb import GraphDB
     g = GraphDB()
     g.create_node(["X"], {}, id="a")
     g.create_node(["X"], {}, id="b")
@@ -249,7 +249,7 @@ def test_cypher_zero_hop_var_length():
 
 
 def test_cypher_limit_early():
-    from fastpyvectordb_tpu.graphdb import GraphDB
+    from fastpyvectordb_jax.graphdb import GraphDB
     g = GraphDB()
     for i in range(50):
         g.create_node(["U"], {"i": i}, id=f"u{i}")
@@ -258,7 +258,7 @@ def test_cypher_limit_early():
 
 
 def test_property_index_numeric_string_distinct():
-    from fastpyvectordb_tpu.graphdb import GraphDB
+    from fastpyvectordb_jax.graphdb import GraphDB
     g = GraphDB()
     g.create_node(["P"], {"age": 30}, id="num")
     g.create_node(["P"], {"age": "30"}, id="strv")

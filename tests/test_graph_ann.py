@@ -4,8 +4,8 @@ visited-set semantics, filters, staleness."""
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig, Filter
-from fastpyvectordb_tpu.ann.graph_ann import GraphANN
+from fastpyvectordb_jax import Collection, CollectionConfig, Filter
+from fastpyvectordb_jax.ann.graph_ann import GraphANN
 
 
 @pytest.fixture(scope="module")
@@ -104,8 +104,8 @@ def test_deleted_rows_vanish_and_memo_refreshes(rng):
     """Tombstoned rows must not be returned (deleted neighbor targets are
     pre-masked to -1 in a memoized navigation table; a delete replaces
     store.valid, which must invalidate that memo)."""
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
     n, d = 600, 16
     v = rng.standard_normal((n, d)).astype(np.float32)
     col = Collection(CollectionConfig(name="gdel", dimensions=d, metric="l2"))
@@ -142,7 +142,7 @@ def test_zero_iter_override_is_respected():
     no-expansion corner would otherwise attribute default-config numbers
     to the wrong configuration."""
     import numpy as np
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(0)
     col = Collection(CollectionConfig(name="g0", dimensions=16, metric="l2"))
     col.insert_batch(rng.standard_normal((800, 16)).astype(np.float32),

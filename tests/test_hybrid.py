@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import CollectionConfig, Filter
-from fastpyvectordb_tpu.embeddings import HashingEmbedder
-from fastpyvectordb_tpu.hybrid import BM25Config, BM25Index, HybridCollection
+from fastpyvectordb_jax import CollectionConfig, Filter
+from fastpyvectordb_jax.embeddings import HashingEmbedder
+from fastpyvectordb_jax.hybrid import BM25Config, BM25Index, HybridCollection
 
 DOCS = {
     "d1": "machine learning with neural networks",
@@ -145,8 +145,8 @@ def test_wal_recovery_keeps_bm25_for_replayed_docs(tmp_path):
     """BM25 snapshot must load BEFORE WAL replay: documents recovered
     from the WAL stay keyword-searchable after a crash."""
     import numpy as np
-    from fastpyvectordb_tpu import CollectionConfig
-    from fastpyvectordb_tpu.hybrid import HybridCollection
+    from fastpyvectordb_jax import CollectionConfig
+    from fastpyvectordb_jax.hybrid import HybridCollection
 
     cfg = lambda: CollectionConfig(name="h", dimensions=8,
                                    durability="wal")
@@ -170,8 +170,8 @@ def test_wal_recovery_keeps_bm25_for_replayed_docs(tmp_path):
 
 def test_update_metadata_empty_text_unindexes():
     import numpy as np
-    from fastpyvectordb_tpu import CollectionConfig
-    from fastpyvectordb_tpu.hybrid import HybridCollection
+    from fastpyvectordb_jax import CollectionConfig
+    from fastpyvectordb_jax.hybrid import HybridCollection
     col = HybridCollection(CollectionConfig(name="u", dimensions=4),
                            text_fields=["title"])
     col.insert(np.ones(4, np.float32), "x", {"title": "ancient scrolls"})
@@ -182,8 +182,8 @@ def test_update_metadata_empty_text_unindexes():
 
 def test_hybrid_search_dot_metric_normalized():
     import numpy as np
-    from fastpyvectordb_tpu import CollectionConfig
-    from fastpyvectordb_tpu.hybrid import HybridCollection
+    from fastpyvectordb_jax import CollectionConfig
+    from fastpyvectordb_jax.hybrid import HybridCollection
     col = HybridCollection(CollectionConfig(name="d", dimensions=4,
                                             metric="ip"),
                            text_fields=["text"])
@@ -201,11 +201,11 @@ def test_native_blob_persistence(tmp_path):
     """Native BM25 persists as a binary state blob (no text replay on
     load) and reloads bit-identically; a python-impl reload of the same
     container decodes the blob host-side."""
-    from fastpyvectordb_tpu import native
+    from fastpyvectordb_jax import native
     if not native.available():
         pytest.skip("no C++ toolchain")
-    from fastpyvectordb_tpu.core.types import CollectionConfig
-    from fastpyvectordb_tpu.persist.format import load_container
+    from fastpyvectordb_jax.core.types import CollectionConfig
+    from fastpyvectordb_jax.persist.format import load_container
 
     cfg = lambda: CollectionConfig(name="h", dimensions=8, metric="cosine")  # noqa: E731
     col = HybridCollection(cfg(), base_path=tmp_path / "h",

@@ -4,7 +4,7 @@ suite 3: seeds vs expansion, filters, reranking, persistence)."""
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.graphdb.hybrid import HybridGraphVectorDB
+from fastpyvectordb_jax.graphdb.hybrid import HybridGraphVectorDB
 
 
 def unit(v):
@@ -123,9 +123,9 @@ def test_semantic_search_native_bfs_matches_python(monkeypatch):
     and hop counts as the Python expansion (seed attribution may differ
     only between equal-hop reachers)."""
     import numpy as np
-    import fastpyvectordb_tpu.graphdb.hybrid as hybrid_mod
-    from fastpyvectordb_tpu import native
-    from fastpyvectordb_tpu.graphdb.hybrid import HybridGraphVectorDB
+    import fastpyvectordb_jax.graphdb.hybrid as hybrid_mod
+    from fastpyvectordb_jax import native
+    from fastpyvectordb_jax.graphdb.hybrid import HybridGraphVectorDB
     if not native.graph_available():
         import pytest
         pytest.skip("native graph library unavailable")
@@ -148,7 +148,7 @@ def test_semantic_search_native_bfs_matches_python(monkeypatch):
     py = db.semantic_graph_search(q, k=n + 1, expand_hops=2)
     monkeypatch.setattr(hybrid_mod, "NATIVE_TRAVERSAL_THRESHOLD", 0,
                         raising=False)
-    import fastpyvectordb_tpu.graphdb.graph as graph_mod
+    import fastpyvectordb_jax.graphdb.graph as graph_mod
     monkeypatch.setattr(graph_mod, "NATIVE_TRAVERSAL_THRESHOLD", 0)
     nat = db.semantic_graph_search(q, k=n + 1, expand_hops=2)
     py_hops = {r.node.id: r.hops for r in py}

@@ -10,7 +10,7 @@ triggers amortized rebuilds.
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig, Filter
+from fastpyvectordb_jax import Collection, CollectionConfig, Filter
 
 D = 20
 
@@ -182,8 +182,8 @@ def test_mass_delete_rebuilds_once_not_every_search(rng):
     """After a >50% mass delete, the drift trigger must fire ONE rebuild;
     comparing against built_count (which includes tombstones) kept the
     condition true forever and every query paid a full rebuild."""
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
     n, d = 600, 16
     v = rng.standard_normal((n, d)).astype(np.float32)
     col = Collection(CollectionConfig(name="md", dimensions=d, metric="l2"))

@@ -4,7 +4,7 @@ incremental tail merge, compression accounting."""
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig, Filter
+from fastpyvectordb_jax import Collection, CollectionConfig, Filter
 
 
 def make_col(metric="l2", n=4000, d=32, seed=11):
@@ -155,10 +155,10 @@ def test_joint_tune():
 
 
 def test_adc_onehot_matches_gather_reference():
-    """The 4-bit one-hot MXU formulation must agree with the direct LUT
+    """The 4-bit one-hot matmul formulation must agree with the direct LUT
     gather on identical inputs."""
     import jax.numpy as jnp
-    from fastpyvectordb_tpu.ann.ivfpq import _adc_sum
+    from fastpyvectordb_jax.ann.ivfpq import _adc_sum
     rng = np.random.default_rng(0)
     b, p, cmax, m, kk = 3, 2, 5, 8, 16
     lut = jnp.asarray(rng.standard_normal((b, m, kk)).astype(np.float32))
@@ -227,7 +227,7 @@ def test_grouped_no_rerank_matches(built):
     """Without the exact re-rank the raw ADC rankings must agree up to
     summation-order noise: the per-query kernel sums the LUT in f32
     gather order at pq_k=64 while the grouped path contracts a bf16 LUT
-    on the (simulated) MXU, so near-ties at the k-cut may flip — scores
+    in a bf16 matmul, so near-ties at the k-cut may flip — scores
     must still match to bf16 tolerance and overlap must stay near-total."""
     col, v, q = built
     d1, r1 = col._ann.search(q, 10, grouped=False, rerank=0)
@@ -283,28 +283,3 @@ def test_grouped_auto_dispatch(built):
     d1, r1 = col._ann.search(big_q, 10)      # grouped=None -> grouped
     d2, r2 = col._ann.search(big_q, 10, grouped=False)
     np.testing.assert_array_equal(r1, r2)
-
-
-def test_grouped_pallas_kernel_interpret():
-    """The VMEM one-hot matmul kernel against a numpy LUT-gather oracle
-    (interpret mode; alignment-shaped inputs)."""
-    import jax.numpy as jnp
-    from fastpyvectordb_tpu.kernels.pallas_ivf import grouped_cell_scores_pq
-    rng = np.random.default_rng(5)
-    nlist, m, cmax, kk, qcap, u = 6, 8, 256, 16, 8, 4
-    codes_t = rng.integers(0, kk, (nlist, m, cmax)).astype(np.uint8)
-    lutq = rng.standard_normal((u, qcap, m * kk)).astype(np.float32)
-    n_uniq = 3
-    cell_list = np.array([n_uniq, 4, 1, 5, 0], dtype=np.int32)
-    out = np.asarray(grouped_cell_scores_pq(
-        jnp.asarray(cell_list), jnp.asarray(lutq, dtype=jnp.bfloat16),
-        jnp.asarray(codes_t), interpret=True))
-    assert out.shape == (u, qcap, cmax)
-    for ui in range(n_uniq):
-        cell = cell_list[1 + ui]
-        lq = lutq[ui].reshape(qcap, m, kk)
-        ref = np.zeros((qcap, cmax), np.float32)
-        for ci in range(cmax):
-            for mi in range(m):
-                ref[:, ci] += lq[:, mi, codes_t[cell, mi, ci]]
-        np.testing.assert_allclose(out[ui], ref, rtol=2e-2, atol=2e-2)

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from fastpyvectordb_tpu.core.types import DistanceMetric
-from fastpyvectordb_tpu.kernels import distances as K
-from fastpyvectordb_tpu.kernels import topk as T
+from fastpyvectordb_jax.core.types import DistanceMetric
+from fastpyvectordb_jax.kernels import distances as K
+from fastpyvectordb_jax.kernels import topk as T
 
 
 def ref_scores(q, v, metric):

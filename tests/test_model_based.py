@@ -15,7 +15,7 @@ id-map drift across save/load.
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig, Filter
+from fastpyvectordb_jax import Collection, CollectionConfig, Filter
 
 D = 8
 K = 5

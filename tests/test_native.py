@@ -4,8 +4,8 @@ Python implementation bit-for-bit on scores and rankings."""
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.hybrid.bm25 import BM25Index
-from fastpyvectordb_tpu import native
+from fastpyvectordb_jax.hybrid.bm25 import BM25Index
+from fastpyvectordb_jax import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain")
@@ -30,7 +30,7 @@ def pair():
 
 
 def test_tokenizer_matches_python(pair):
-    from fastpyvectordb_tpu.hybrid.bm25 import tokenize
+    from fastpyvectordb_jax.hybrid.bm25 import tokenize
     _, nat = pair
     for text in list(DOCS.values()) + ["ALL-CAPS and under_scores 123 éé"]:
         assert nat.tokenize(text) == tokenize(text)
@@ -106,15 +106,15 @@ def test_native_bm25_unicode_parity():
     """Native and Python backends must tokenize Unicode identically
     ('École—Bar' lowercases and splits on the em-dash)."""
     import pytest
-    from fastpyvectordb_tpu import native
-    from fastpyvectordb_tpu.hybrid.bm25 import BM25Index
+    from fastpyvectordb_jax import native
+    from fastpyvectordb_jax.hybrid.bm25 import BM25Index
     if not native.available():
         pytest.skip("native unavailable")
     nat, py = native.NativeBM25(), BM25Index()
     for idx in (nat, py):
         idx.add_document("d1", "École—Bar serves café food")
         idx.add_document("d2", "a completely different document")
-    from fastpyvectordb_tpu.hybrid.bm25 import tokenize
+    from fastpyvectordb_jax.hybrid.bm25 import tokenize
     assert nat.tokenize("École—Bar") == tokenize("École—Bar")
     for q in ("école", "bar", "café"):
         nhits = nat.search(q, k=2)
@@ -126,8 +126,8 @@ def test_native_bm25_unicode_parity():
 
 def test_native_bm25_tie_break_parity():
     import pytest
-    from fastpyvectordb_tpu import native
-    from fastpyvectordb_tpu.hybrid.bm25 import BM25Index
+    from fastpyvectordb_jax import native
+    from fastpyvectordb_jax.hybrid.bm25 import BM25Index
     if not native.available():
         pytest.skip("native unavailable")
     nat, py = native.NativeBM25(), BM25Index()

@@ -4,9 +4,9 @@ chunked search)."""
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.core.outofcore import OutOfCoreSearcher
-from fastpyvectordb_tpu.core.types import DistanceMetric
-from fastpyvectordb_tpu.persist.format import (
+from fastpyvectordb_jax.core.outofcore import OutOfCoreSearcher
+from fastpyvectordb_jax.core.types import DistanceMetric
+from fastpyvectordb_jax.persist.format import (
     StreamingVectorReader,
     StreamingVectorWriter,
 )
@@ -92,7 +92,7 @@ def test_memmap_backed_corpus_matches(tmp_path, corpus):
 # (parity tier: reference README.md:571-578 ">10M mmap + BQ + candidates",
 # parallel_search.py:895-947 search_hybrid)
 
-from fastpyvectordb_tpu.core.outofcore import QuantizedOutOfCoreSearcher
+from fastpyvectordb_jax.core.outofcore import QuantizedOutOfCoreSearcher
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,8 @@
 Gates mirror the reference's absolute thresholds at the same scale
 (5k x 128-d): insert > 1k vec/s, warm avg search latency < 50 ms,
 p99 < 100 ms, QPS > 100, batch QPS > 500, graph property lookup < 1 ms.
-Run on the CPU backend in CI; the TPU clears them by orders of magnitude.
+Run on the CPU backend in CI; the gates hold there, so they guard against
+host-side regressions rather than measure the device.
 """
 
 import time
@@ -11,7 +12,7 @@ import time
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig
+from fastpyvectordb_jax import Collection, CollectionConfig
 
 N, D = 5_000, 128
 
@@ -68,7 +69,7 @@ def test_batch_qps(loaded):
 
 
 def test_property_index_lookup_under_1ms():
-    from fastpyvectordb_tpu.graphdb import GraphDB
+    from fastpyvectordb_jax.graphdb import GraphDB
     g = GraphDB()
     for i in range(2_000):
         g.create_node(["N"], {"bucket": i % 50, "i": i}, id=f"n{i}")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu.persist.format import (
+from fastpyvectordb_jax.persist.format import (
     Container,
     StreamingVectorReader,
     StreamingVectorWriter,
@@ -118,8 +118,8 @@ def test_quantized_scan_snapshot_roundtrip(tmp_path, rng, kind):
     codes — no re-train/re-encode (round-2 verdict gap: a reloaded
     collection cold-started for minutes; reference persists quantizer
     state, quantization.py:196-213)."""
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
 
     v = rng.standard_normal((300, 32)).astype(np.float32)
     col = Collection(CollectionConfig(name="q", dimensions=32,
@@ -148,8 +148,8 @@ def test_quantized_snapshot_reload_with_tombstones_no_rebuild(tmp_path, rng):
     whose build already accounted for tombstones must NOT re-trigger the
     drift rebuild (the minutes-long re-encode the snapshot exists to
     avoid) on its first search."""
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
 
     v = rng.standard_normal((300, 16)).astype(np.float32)
     col = Collection(CollectionConfig(name="tq", dimensions=16,

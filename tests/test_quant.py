@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig
-from fastpyvectordb_tpu.core.types import DistanceMetric
-from fastpyvectordb_tpu.quant.binary import BinaryQuantizer
-from fastpyvectordb_tpu.quant.int4 import Int4Quantizer
-from fastpyvectordb_tpu.quant.kmeans import assign_chunked, kmeans_fit
-from fastpyvectordb_tpu.quant.product import ProductQuantizer
-from fastpyvectordb_tpu.quant.scalar import ScalarQuantizer
+from fastpyvectordb_jax import Collection, CollectionConfig
+from fastpyvectordb_jax.core.types import DistanceMetric
+from fastpyvectordb_jax.quant.binary import BinaryQuantizer
+from fastpyvectordb_jax.quant.int4 import Int4Quantizer
+from fastpyvectordb_jax.quant.kmeans import assign_chunked, kmeans_fit
+from fastpyvectordb_jax.quant.product import ProductQuantizer
+from fastpyvectordb_jax.quant.scalar import ScalarQuantizer
 
 
 def recall_at_k(approx_idx, exact_idx, k):
@@ -268,7 +268,7 @@ class TestQuantizedScan:
         assert overlap >= {"int8": 0.9, "int4": 0.85}.get(kind, 0.6)
 
     def test_respects_filter(self, corpus):
-        from fastpyvectordb_tpu import Filter
+        from fastpyvectordb_jax import Filter
         v, q, _ = corpus
         col = Collection(CollectionConfig(name="t", dimensions=32, metric="l2"))
         col.insert_batch(v, [f"v{i}" for i in range(len(v))],
@@ -292,7 +292,7 @@ def test_pq_two_stage_scan(corpus):
 
 
 def test_bfloat16_collection_config(corpus):
-    """The bf16 serving config (TPU default) must trace and rank correctly
+    """The bf16 serving config must trace and rank correctly
     on every path, including quantized re-rank in bf16."""
     v, q, _ = corpus
     col = Collection(CollectionConfig(name="bf", dimensions=32, metric="l2",
@@ -307,15 +307,15 @@ def test_bfloat16_collection_config(corpus):
 
 
 def test_candidate_selection_covers_global_top():
-    """The approx candidate set must contain the true global top-k and
-    never surface masked rows (CPU approx_max_k falls back to exact)."""
+    """The coarse candidate set must contain the true global top-k and
+    never surface masked rows."""
     import jax.numpy as jnp
-    from fastpyvectordb_tpu.quant.scan import _masked_candidates
+    from fastpyvectordb_jax.quant.scan import _coarse_topk
     rng = np.random.default_rng(4)
     s = rng.standard_normal((6, 1000)).astype(np.float32)
     mask = np.ones(1000, dtype=bool)
     mask[500:600] = False
-    vals, rows = _masked_candidates(jnp.asarray(s), jnp.asarray(mask), c=128)
+    vals, rows = _coarse_topk(jnp.asarray(s), jnp.asarray(mask), 128)
     rows = np.asarray(rows)
     masked_s = np.where(mask[None, :], s, np.inf)
     want = np.argsort(masked_s, axis=1)[:, :10]
@@ -327,10 +327,10 @@ def test_candidate_selection_covers_global_top():
 
 def test_tune_rerank_binary_clustered():
     """1-bit ordering degrades on clustered corpora; tune_rerank must find
-    the candidate depth that restores recall (measured collapse: ~0.5
-    recall@10 at rerank=16 on the 1M clustered TPU run, r2_raw.jsonl)."""
+    the candidate depth that restores recall (on a 1M clustered corpus
+    recall@10 collapses to ~0.5 at rerank=16)."""
     import numpy as np
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(5)
     n, d = 4000, 64
     centers = rng.standard_normal((8, d)).astype(np.float32) * 2
@@ -353,7 +353,7 @@ def test_tune_rerank_binary_clustered():
 
 def test_tuned_rerank_survives_threshold_rebuild():
     import numpy as np
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(9)
     col = Collection(CollectionConfig(name="tr", dimensions=16))
     col.insert_batch(rng.standard_normal((256, 16)).astype(np.float32),
@@ -376,7 +376,7 @@ def test_pq_scan_cosine_normalizes():
     be built over the normalized corpus or large-norm rows hijack the
     candidate pool."""
     import numpy as np
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     rng = np.random.default_rng(0)
     n, d = 1500, 32
     v = rng.standard_normal((n, d)).astype(np.float32)
@@ -393,7 +393,7 @@ def test_pq_scan_cosine_normalizes():
 def test_pq_scan_rejects_dot_metric():
     import numpy as np
     import pytest
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     col = Collection(CollectionConfig(name="pqd", dimensions=8,
                                       metric="ip"))
     col.insert_batch(np.eye(8, dtype=np.float32), list("abcdefgh"))
@@ -404,7 +404,7 @@ def test_pq_scan_rejects_dot_metric():
 @pytest.mark.parametrize("kind", ["int8", "int4", "binary", "pq"])
 def test_capacity_buffer_codes(kind, tmp_path):
     """QuantizedScan.build encodes the store's full CAPACITY buffer (no
-    [:n] device copy — an HBM OOM class at multi-GB corpora).  Padding
+    [:n] device copy — a second multi-GB corpus in device memory).  Padding
     rows carry garbage codes and must never rank; rows appended after the
     build land in old padding slots and are served by the exact tail
     merge; count-sized filter masks pad against capacity codes; persist
@@ -426,7 +426,7 @@ def test_capacity_buffer_codes(kind, tmp_path):
     assert hits[0].id == "a17", [h.id for h in hits]
     assert all(h.id.startswith("a") for h in hits)  # no padding rows
     # count-sized filter mask vs capacity-length codes
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     fhits = col.search_quantized(q, k=5, rerank=16,
                                  filter=Filter.eq("g", 2))[0]
     assert fhits and all(h.metadata["g"] == 2 for h in fhits)
@@ -453,8 +453,8 @@ def test_tune_rerank_oracle_excludes_post_build_tail():
     return: with appended (tail) rows in scope, recall caps below any
     reachable value and the loop pins default_rerank at max_rerank."""
     import numpy as np
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
 
     rng = np.random.default_rng(6)
     v = rng.standard_normal((400, 16)).astype(np.float32)
@@ -470,12 +470,33 @@ def test_tune_rerank_oracle_excludes_post_build_tail():
     assert rr <= 8, rr
 
 
+@pytest.mark.parametrize("metric", list(DistanceMetric))
+def test_sq_int8_matmul_matches_reference(metric):
+    """The int8 scan path (query-side scale folding) must rank like the
+    full dequantized computation."""
+    import jax.numpy as jnp
+    from fastpyvectordb_jax.quant.scalar import _distances
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal((300, 40)).astype(np.float32)
+    q = rng.standard_normal((5, 40)).astype(np.float32)
+    sq = ScalarQuantizer().train(v)
+    codes = sq.encode(v)
+    want = np.asarray(_distances(jnp.asarray(q), codes, sq.vmin, sq.scale,
+                                 metric=metric))
+    got = np.asarray(sq.distances(q, codes, metric, mode="int8mm"))
+    # query quantization adds <1% relative error
+    tol = 2e-2 * max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got, want, atol=tol)
+    # rank stability: top-1 score per the reference matrix is near-optimal
+    top = want[np.arange(len(want)), got.argmin(1)]
+    np.testing.assert_allclose(top, want.min(1), atol=tol)
+
+
 def test_score_matrix_hbm_cap_splits_batches(monkeypatch):
     """A query batch whose coarse (B, N) f32 score matrix would exceed
     the per-dispatch budget splits into pow2 sub-batches with identical
-    results (r5: a 5M x B=1024 dispatch allocated 20 GB and OOMed the
-    16 GB chip — benchmarks/r5logs/int4_5m.log)."""
-    from fastpyvectordb_tpu.quant.scan import QuantizedScan
+    results (a 5M x B=1024 dispatch would allocate 20 GB at once)."""
+    from fastpyvectordb_jax.quant.scan import QuantizedScan
     rng = np.random.default_rng(3)
     col = Collection(CollectionConfig(name="cap", dimensions=16))
     col.insert_batch(rng.standard_normal((500, 16), dtype=np.float32),
@@ -486,5 +507,35 @@ def test_score_matrix_hbm_cap_splits_batches(monkeypatch):
     # budget for <= 8 queries: 8 * 500 * 4 bytes
     monkeypatch.setattr(QuantizedScan, "_score_hbm_budget", 8 * 500 * 4)
     d_split, r_split = scan.search(q, 5)
+    np.testing.assert_array_equal(r_full, r_split)
+    np.testing.assert_allclose(d_full, d_split, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,rerank", [("int8", 4), ("int8", 1),
+                                         ("binary", 16), ("pq", 4)])
+def test_score_block_cap_splits_every_codec(monkeypatch, kind, rerank):
+    """Every codec splits a batch whose coarse score block exceeds the
+    budget (the GPU materialises the block for each of them), into
+    sub-batches of at most the budget, with unchanged answers."""
+    from fastpyvectordb_jax.quant.scan import QuantizedScan
+    rng = np.random.default_rng(4)
+    col = Collection(CollectionConfig(name="cap", dimensions=16))
+    col.insert_batch(rng.standard_normal((500, 16), dtype=np.float32),
+                     [f"v{i}" for i in range(500)])
+    scan = col.enable_quantized_scan(kind, tune=False)
+    q = rng.standard_normal((40, 16), dtype=np.float32)
+    d_full, r_full = scan.search(q, 5, rerank=rerank)
+    n_rows = int(scan.codes.shape[0])
+    monkeypatch.setattr(QuantizedScan, "_score_hbm_budget", 8 * n_rows * 4)
+    seen = []
+    orig = QuantizedScan.search
+
+    def spy(self, queries, *a, **kw):
+        seen.append(len(queries))
+        return orig(self, queries, *a, **kw)
+
+    monkeypatch.setattr(QuantizedScan, "search", spy)
+    d_split, r_split = scan.search(q, 5, rerank=rerank)
+    assert seen[0] == 40 and max(seen[1:]) <= 8 and sum(seen[1:]) == 40
     np.testing.assert_array_equal(r_full, r_split)
     np.testing.assert_allclose(d_full, d_split, rtol=1e-5, atol=1e-5)

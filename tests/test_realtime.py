@@ -7,8 +7,8 @@ import time
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig
-from fastpyvectordb_tpu.realtime import (
+from fastpyvectordb_jax import Collection, CollectionConfig
+from fastpyvectordb_jax.realtime import (
     AsyncConnectionManager,
     Event,
     EventBus,
@@ -113,7 +113,7 @@ def test_eventbus_stop_start_cycle_delivers():
     """A restarted bus must keep delivering (stale stop-sentinels in the
     queue must not kill the new dispatcher thread)."""
     import time
-    from fastpyvectordb_tpu.realtime import Event, EventBus, EventType
+    from fastpyvectordb_jax.realtime import Event, EventBus, EventType
     bus = EventBus()
     seen = []
     bus.subscribe(lambda e: seen.append(e.data["i"]))
@@ -130,8 +130,8 @@ def test_eventbus_stop_start_cycle_delivers():
 
 def test_observable_update_metadata_emits():
     import numpy as np
-    from fastpyvectordb_tpu import Collection, CollectionConfig
-    from fastpyvectordb_tpu.realtime import EventType, ObservableCollection
+    from fastpyvectordb_jax import Collection, CollectionConfig
+    from fastpyvectordb_jax.realtime import EventType, ObservableCollection
     events = []
     col = ObservableCollection(
         Collection(CollectionConfig(name="om", dimensions=4)),

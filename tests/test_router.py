@@ -11,8 +11,8 @@ import pytest
 aiohttp = pytest.importorskip("aiohttp")
 httpx = pytest.importorskip("httpx")
 
-from fastpyvectordb_tpu.server.app import create_app
-from fastpyvectordb_tpu.server.router import _shard_of, create_router_app
+from fastpyvectordb_jax.server.app import create_app
+from fastpyvectordb_jax.server.router import _shard_of, create_router_app
 
 
 def free_port():

@@ -12,8 +12,8 @@ import pytest
 
 aiohttp = pytest.importorskip("aiohttp")
 
-from fastpyvectordb_tpu.http_client import VectorDBClient
-from fastpyvectordb_tpu.server.app import create_app
+from fastpyvectordb_jax.http_client import VectorDBClient
+from fastpyvectordb_jax.server.app import create_app
 
 
 def free_port():
@@ -104,7 +104,7 @@ def test_vector_crud_and_search(client):
 
 
 def test_filter_tree_search(client):
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     f = Filter.or_([Filter.eq("g", 0), Filter.eq("g", 9)])
     res = client.search("vecs", vector=np.zeros(8), k=30,
                         filter_tree=f.to_dict())
@@ -221,8 +221,8 @@ def test_batcher_coalesces_concurrent_queries():
     """Concurrent single-query requests in one window must merge into one
     device dispatch per (collection, k, filter) bucket."""
     import asyncio
-    from fastpyvectordb_tpu import Collection, CollectionConfig
-    from fastpyvectordb_tpu.server.batcher import QueryBatcher
+    from fastpyvectordb_jax import Collection, CollectionConfig
+    from fastpyvectordb_jax.server.batcher import QueryBatcher
 
     col = Collection(CollectionConfig(name="b", dimensions=8, metric="l2"))
     rng = np.random.default_rng(0)
@@ -251,13 +251,13 @@ def test_batcher_coalesces_concurrent_queries():
 
 def test_batcher_continuous_coalescing_under_inflight():
     """While a dispatch is computing, arrivals must ACCUMULATE and flush as
-    one wave on completion — not flush one-by-one after the fixed window.
-    (On chip the fixed-window design degraded to batch-of-1 dispatches
-    under concurrent load: 16 workers, p50 585 ms — round-3 finding.)"""
+    one wave on completion — not flush one-by-one after the fixed window
+    (a fixed-window design degrades to batch-of-1 dispatches under
+    concurrent load)."""
     import asyncio
     import time as _t
-    from fastpyvectordb_tpu import Collection, CollectionConfig
-    from fastpyvectordb_tpu.server.batcher import QueryBatcher
+    from fastpyvectordb_jax import Collection, CollectionConfig
+    from fastpyvectordb_jax.server.batcher import QueryBatcher
 
     col = Collection(CollectionConfig(name="cb", dimensions=8, metric="l2"))
     rng = np.random.default_rng(2)
@@ -300,8 +300,8 @@ def test_batcher_bad_query_fails_bucket_not_hangs():
     flush with an exception on every future — never leave them pending
     (the np.stack used to run outside the try block)."""
     import asyncio
-    from fastpyvectordb_tpu import Collection, CollectionConfig
-    from fastpyvectordb_tpu.server.batcher import QueryBatcher
+    from fastpyvectordb_jax import Collection, CollectionConfig
+    from fastpyvectordb_jax.server.batcher import QueryBatcher
 
     col = Collection(CollectionConfig(name="bb", dimensions=8, metric="l2"))
     rng = np.random.default_rng(1)
@@ -328,8 +328,8 @@ def test_batcher_admission_control_rejects_backlog():
     to fast 503s, not multi-second queueing (round-3: p99 8 s at c256)."""
     import asyncio
     import time as _t
-    from fastpyvectordb_tpu import Collection, CollectionConfig
-    from fastpyvectordb_tpu.server.batcher import QueryBatcher, QueueFull
+    from fastpyvectordb_jax import Collection, CollectionConfig
+    from fastpyvectordb_jax.server.batcher import QueryBatcher, QueueFull
 
     col = Collection(CollectionConfig(name="ac", dimensions=8, metric="l2"))
     rng = np.random.default_rng(3)
@@ -366,8 +366,8 @@ def test_batcher_coalesces_quantized_singles():
     dispatched each in its own executor call) — and in their OWN bucket,
     never np.stack'ed with exact queries."""
     import asyncio
-    from fastpyvectordb_tpu import Collection, CollectionConfig
-    from fastpyvectordb_tpu.server.batcher import QueryBatcher
+    from fastpyvectordb_jax import Collection, CollectionConfig
+    from fastpyvectordb_jax.server.batcher import QueryBatcher
 
     col = Collection(CollectionConfig(name="qb", dimensions=8, metric="l2"))
     rng = np.random.default_rng(4)
@@ -556,7 +556,7 @@ def test_prewarm_flag_compiles_at_startup(tmp_path, capsys):
     """create_app(prewarm=N) compiles the serving shapes during app
     startup, before the first request (ROADMAP #11)."""
     from aiohttp import web
-    from fastpyvectordb_tpu import VectorDB
+    from fastpyvectordb_jax import VectorDB
     path = tmp_path / "pw_srv"
     db = VectorDB(str(path))
     col = db.create_collection("warm", dimensions=8, metric="l2")

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fastpyvectordb_tpu.core.types import DistanceMetric
-from fastpyvectordb_tpu.dist.mesh import make_mesh, DATA_AXIS, QUERY_AXIS
-from fastpyvectordb_tpu.dist.sharded import (
+from fastpyvectordb_jax.core.types import DistanceMetric
+from fastpyvectordb_jax.dist.mesh import make_mesh, DATA_AXIS, QUERY_AXIS
+from fastpyvectordb_jax.dist.sharded import (
     ShardedSearcher,
     build_sharded_kmeans_step,
     build_sharded_search,
@@ -102,7 +102,7 @@ def test_sharded_kmeans_step_matches_single_device(mesh, rng):
 
 
 def test_collection_as_sharded_searcher(rng):
-    from fastpyvectordb_tpu import Collection, CollectionConfig
+    from fastpyvectordb_jax import Collection, CollectionConfig
     import jax.numpy as jnp
     col = Collection(CollectionConfig(name="s", dimensions=8, metric="l2"))
     v = rng.standard_normal((300, 8)).astype(np.float32)
@@ -118,7 +118,7 @@ def test_collection_as_sharded_searcher(rng):
 
 
 def test_global_mesh_and_local_shard(rng):
-    from fastpyvectordb_tpu.dist.multihost import global_mesh, shard_local_corpus
+    from fastpyvectordb_jax.dist.multihost import global_mesh, shard_local_corpus
     mesh = global_mesh()
     assert mesh.shape[DATA_AXIS] == 8
     local = rng.standard_normal((64, 4)).astype(np.float32)

@@ -5,9 +5,9 @@ import pytest
 
 import jax
 
-from fastpyvectordb_tpu import Collection, CollectionConfig
-from fastpyvectordb_tpu.dist.mesh import make_mesh
-from fastpyvectordb_tpu.dist.sharded_ann import ShardedInt8, ShardedIVF
+from fastpyvectordb_jax import Collection, CollectionConfig
+from fastpyvectordb_jax.dist.mesh import make_mesh
+from fastpyvectordb_jax.dist.sharded_ann import ShardedInt8, ShardedIVF
 
 D = 16
 
@@ -135,7 +135,7 @@ def test_sharded_int8_respects_tombstones(built, mesh):
 
 
 def test_sharded_ivfpq_recall(built, mesh):
-    from fastpyvectordb_tpu.dist.sharded_ann import ShardedIVFPQ
+    from fastpyvectordb_jax.dist.sharded_ann import ShardedIVFPQ
     col, v, q, exact = built
     col.build_ann(kind="ivfpq", nlist=64, nprobe=12, iters=5, m=8, pq_k=64,
                   pq_iters=8, rerank=16)
@@ -153,7 +153,7 @@ def test_sharded_ivfpq_recall(built, mesh):
 
 
 def test_sharded_ivfpq_tombstones(built, mesh):
-    from fastpyvectordb_tpu.dist.sharded_ann import ShardedIVFPQ
+    from fastpyvectordb_jax.dist.sharded_ann import ShardedIVFPQ
     col, v, q, exact = built
     if col._ann is None or type(col._ann).__name__ != "IVFPQIndex":
         col.build_ann(kind="ivfpq", nlist=64, nprobe=12, iters=5, m=8,
@@ -173,7 +173,7 @@ def test_sharded_ivfpq_grouped_matches_perquery(built, mesh):
     partition the corpus, so cell-major scoring + regroup is a
     reordering of the per-query candidate scan, and phase 2 re-scores
     both candidate sets exactly."""
-    from fastpyvectordb_tpu.dist.sharded_ann import ShardedIVFPQ
+    from fastpyvectordb_jax.dist.sharded_ann import ShardedIVFPQ
     col, v, q, exact = built
     if col._ann is None or type(col._ann).__name__ != "IVFPQIndex":
         col.build_ann(kind="ivfpq", nlist=64, nprobe=12, iters=5, m=8,
@@ -218,8 +218,8 @@ def test_sharded_ivf_int8_cells(built, mesh):
 
 def _overflow_collection(seed=11, n=1024, shift=6.0):
     """Corpus offset far from the origin, so a query near an overflow row
-    is far from the data mean — the regime where mean-centroid routing
-    (without the always-probe boost) would never reach overflow cells."""
+    is far from the data mean — the regime where routing alone would never
+    reach the overflow rows."""
     rng = np.random.default_rng(seed)
     v = rng.standard_normal((n, D)).astype(np.float32)
     v[: n // 2] += shift  # bimodal: the mean sits between the modes
@@ -231,7 +231,7 @@ def _overflow_collection(seed=11, n=1024, shift=6.0):
 
 def test_sharded_ivf_overflow_far_from_mean(mesh):
     """Overflow rows must be found even when the query routes far away
-    from the data-mean centroid (cent_boost always-probe)."""
+    from the data mean (every shard scans its overflow rows exactly)."""
     col, v = _overflow_collection()
     col.build_ann(kind="ivf", nlist=32, nprobe=4, iters=4,
                   max_cell_factor=0.6, spill_choices=2)
@@ -244,7 +244,7 @@ def test_sharded_ivf_overflow_far_from_mean(mesh):
     _, rows = sh.search(probe, 5)
     for qi, want in enumerate(overflow[:8]):
         assert want in rows[qi].tolist(), (qi, want, rows[qi])
-    # normal routing still works with the boost installed
+    # normal routing still works beside the overflow scan
     regular = np.setdiff1d(np.arange(v.shape[0]), overflow)[:8]
     _, rows = sh.search(v[regular], 5)
     hit = sum(int(w in r.tolist()) for w, r in zip(regular, rows))
@@ -252,7 +252,7 @@ def test_sharded_ivf_overflow_far_from_mean(mesh):
 
 
 def test_sharded_ivfpq_overflow_far_from_mean(mesh):
-    from fastpyvectordb_tpu.dist.sharded_ann import ShardedIVFPQ
+    from fastpyvectordb_jax.dist.sharded_ann import ShardedIVFPQ
     col, v = _overflow_collection(seed=13)
     col.build_ann(kind="ivfpq", nlist=32, nprobe=4, iters=4, m=8, pq_k=16,
                   pq_iters=3, max_cell_factor=0.6, spill_choices=2)
@@ -270,12 +270,11 @@ def test_sharded_ivfpq_overflow_far_from_mean(mesh):
 def test_sharded_ivf_grouped_matches_perquery(mesh):
     """The in-shard grouped (cell-major) dispatch must select the same
     rows as the per-query gather at identical inputs — including the
-    always-probed overflow cell, which the grouped branch excludes from
-    routing and scans exactly instead."""
+    overflow block, which both branches scan exactly."""
     import jax.numpy as jnp
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
-    from fastpyvectordb_tpu.dist.sharded_ann import (
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
+    from fastpyvectordb_jax.dist.sharded_ann import (
         ShardedIVF, build_sharded_ivf_search)
 
     rng = np.random.default_rng(5)
@@ -285,7 +284,7 @@ def test_sharded_ivf_grouped_matches_perquery(mesh):
     # the 128-row cell-capacity floor makes real overflow unreachable at
     # test scale — plant synthetic overflow entries (rows also present in
     # cells: both dispatches see the identical candidate multiset, so
-    # parity still holds) to exercise the boost-cell scan in the grouped
+    # parity still holds) to exercise the overflow scan in the grouped
     # branch
     orows = np.arange(16, dtype=np.int32)
     col._ann.overflow_rows = jnp.asarray(orows)
@@ -309,13 +308,43 @@ def test_sharded_ivf_grouped_matches_perquery(mesh):
         np.testing.assert_allclose(d_g[mism], d_p[mism], atol=2e-3)
 
 
+@pytest.mark.parametrize("cell_dtype", [None, "int8"])
+def test_sharded_ivf_overflow_wider_than_cells(mesh, cell_dtype):
+    """An overflow block wider than a cell keeps the cells at the index's
+    own width (padding every cell to the overflow width multiplies the
+    cell tensor), and every overflow row is still found."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(9)
+    n = 4096
+    v = rng.standard_normal((n, D)).astype(np.float32)
+    col = Collection(CollectionConfig(name="wide", dimensions=D,
+                                      metric="cosine"))
+    col.insert_batch(v, [f"v{i}" for i in range(n)])
+    col.build_ann(nlist=64, nprobe=4, iters=3, cell_dtype=cell_dtype)
+    # plant every row as overflow: n / 8 shards = 512 rows per shard,
+    # four times the 128-row cell width
+    orows = np.arange(n, dtype=np.int32)
+    col._ann.overflow_rows = jnp.asarray(orows)
+    col._ann.overflow_vecs = jnp.asarray(v)
+    sh = ShardedIVF.from_index(mesh, col._ann)
+    assert sh.cells.shape[1] == col._ann.cells.shape[1] == 128
+    assert sh.overflow_vecs.shape[0] == n
+    assert sh.overflow_vecs.dtype == col._ann.cells.dtype
+    probe = rng.choice(n, 32, replace=False)
+    for grouped in (True, False):
+        sh._fns.clear()
+        sh._allow_grouped = grouped
+        _, rows = sh.search(v[probe], 5)
+        assert (rows[:, 0] == probe).all(), grouped
+
+
 def test_sharded_int8_masks_post_build_tail(mesh):
     """Rows appended after the snapshot build carry garbage codes;
     ShardedInt8.from_scan must mask them out of the coarse scan
     (QuantizedScan.search's arange < built_count guard)."""
     import numpy as np
-    from fastpyvectordb_tpu.core.collection import Collection
-    from fastpyvectordb_tpu.core.types import CollectionConfig
+    from fastpyvectordb_jax.core.collection import Collection
+    from fastpyvectordb_jax.core.types import CollectionConfig
 
     rng = np.random.default_rng(11)
     v = rng.standard_normal((256, 16)).astype(np.float32)
@@ -329,3 +358,51 @@ def test_sharded_int8_masks_post_build_tail(mesh):
     sh = ShardedInt8.from_scan(mesh, scan)
     _, rows = sh.search(v[:8], k=10)
     assert (rows < built).all(), "tail rows served from garbage codes"
+
+
+@pytest.mark.parametrize("ndev,per", [(1, 1), (4, 13), (8, 128), (2, 129)])
+def test_overflow_shards_pad_to_aligned_length(ndev, per):
+    """Each shard's overflow slice is padded, in place, to a multiple of
+    128 rows of dead slots; its live rows keep their shard and order."""
+    from fastpyvectordb_jax.dist.sharded_ann import _pad_overflow_shards
+    n = ndev * per
+    vecs = np.arange(n * 3, dtype=np.int8).reshape(n, 3)
+    norms = np.arange(n, dtype=np.float32) + 1
+    rows = np.arange(n, dtype=np.int32)
+    pv, pn, pr = _pad_overflow_shards(vecs, norms, rows, ndev)
+    per_p = pr.shape[0] // ndev
+    assert pr.shape[0] % ndev == 0 and per_p % 128 == 0 and per_p >= per
+    assert pv.shape == (ndev * per_p, 3) and pn.shape == pr.shape
+    for i in range(ndev):
+        blk = slice(i * per_p, (i + 1) * per_p)
+        np.testing.assert_array_equal(pr[blk][:per], rows[i * per:(i + 1) * per])
+        np.testing.assert_array_equal(pv[blk][:per], vecs[i * per:(i + 1) * per])
+        assert (pr[blk][per:] == -1).all() and (pn[blk][per:] == 0).all()
+    with pytest.raises(ValueError, match="multiple"):
+        _pad_overflow_shards(vecs, norms, rows, n + 1)
+
+
+@pytest.mark.parametrize("cell_dtype", [None, "int8"])
+def test_sharded_ivf_odd_overflow_per_shard(mesh, cell_dtype):
+    """An overflow block that splits into an odd row count per shard
+    (8 x 67 rows) is padded per shard, and every overflow row is found."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(13)
+    n = 2048
+    v = rng.standard_normal((n, D)).astype(np.float32)
+    col = Collection(CollectionConfig(name="odd", dimensions=D,
+                                      metric="cosine"))
+    col.insert_batch(v, [f"v{i}" for i in range(n)])
+    col.build_ann(nlist=32, nprobe=4, iters=3, cell_dtype=cell_dtype)
+    orows = rng.choice(n, 8 * 67, replace=False).astype(np.int32)
+    col._ann.overflow_rows = jnp.asarray(orows)
+    col._ann.overflow_vecs = jnp.asarray(v[orows])
+    sh = ShardedIVF.from_index(mesh, col._ann)
+    assert sh.overflow_rows.shape[0] == 8 * 128
+    assert int((np.asarray(sh.overflow_rows) >= 0).sum()) == orows.size
+    probe = orows[:32]
+    for grouped in (True, False):
+        sh._fns.clear()
+        sh._allow_grouped = grouped
+        _, rows = sh.search(v[probe], 5)
+        assert (rows[:, 0] == probe).all(), grouped

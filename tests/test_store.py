@@ -8,7 +8,7 @@ silently overwrites earlier live rows.
 
 import numpy as np
 
-from fastpyvectordb_tpu.core.store import DeviceVectorStore, MIN_CAPACITY
+from fastpyvectordb_jax.core.store import DeviceVectorStore, MIN_CAPACITY
 
 
 def _row(i, d=16):
@@ -72,7 +72,7 @@ def test_search_after_boundary_append_finds_new_rows():
     q[0, 1] = 1.0  # orthogonal to all existing rows
     tail = np.tile(q, (3, 1)) * 5.0
     rows = store.append(tail)
-    from fastpyvectordb_tpu.core.types import DistanceMetric
+    from fastpyvectordb_jax.core.types import DistanceMetric
     dists, hit_rows = store.search(q, k=3, metric=DistanceMetric.COSINE)
     assert set(hit_rows[0].tolist()) == set(rows.tolist())
 
@@ -80,8 +80,8 @@ def test_search_after_boundary_append_finds_new_rows():
 def test_capacity_bucket_ladder():
     """Capacities walk the {2^k, 3*2^(k-1)} ladder: a corpus slightly
     over a pow2 lands in the 1.5x half-step, not the next pow2 (a 5M-row
-    bf16 corpus must not allocate an 8.4M-row buffer on a 16 GB chip)."""
-    from fastpyvectordb_tpu.core.store import _next_bucket
+    bf16 corpus must not allocate an 8.4M-row buffer)."""
+    from fastpyvectordb_jax.core.store import _next_bucket
     assert _next_bucket(1000) == 1024
     assert _next_bucket(1024) == 1024
     assert _next_bucket(1025) == 1536

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fastpyvectordb_tpu import Collection, CollectionConfig
-from fastpyvectordb_tpu.persist.format import load_container, save_container
-from fastpyvectordb_tpu.persist.wal import (OP_DELETE, OP_INSERT,
+from fastpyvectordb_jax import Collection, CollectionConfig
+from fastpyvectordb_jax.persist.format import load_container, save_container
+from fastpyvectordb_jax.persist.wal import (OP_DELETE, OP_INSERT,
                                             WriteAheadLog)
 
 
@@ -148,7 +148,7 @@ def test_zero_row_insert_does_not_poison_log(tmp_path):
 
 
 def test_numpy_metadata_survives_replay_numerically(tmp_path):
-    from fastpyvectordb_tpu import Filter
+    from fastpyvectordb_jax import Filter
     p = tmp_path / "c7"
     col = wal_col(p)
     col.insert(np.ones(8, np.float32), id="n",
@@ -165,7 +165,7 @@ def test_wal_zero_filled_torn_tail(tmp_path):
     clip the tail, not crash replay: rlen=0/crc=0 passes the CRC check
     because crc32(b'') == 0."""
     import numpy as np
-    from fastpyvectordb_tpu.persist.wal import OP_INSERT, WriteAheadLog
+    from fastpyvectordb_jax.persist.wal import OP_INSERT, WriteAheadLog
     p = tmp_path / "t.wal"
     wal = WriteAheadLog(p)
     wal.log_insert(["a"], [{}], np.ones((1, 4), np.float32))
@@ -185,7 +185,7 @@ def test_vectordb_restart_replays_wal_and_keeps_durability(tmp_path):
     sidecar: logged-but-unsnapshotted writes survive a restart, and the
     reloaded collection keeps logging."""
     import numpy as np
-    from fastpyvectordb_tpu import VectorDB
+    from fastpyvectordb_jax import VectorDB
     db = VectorDB(str(tmp_path))
     col = db.create_collection("w", 8, durability="wal")
     col.insert(np.ones(8, np.float32), "a")

@@ -14,10 +14,10 @@ aiohttp = pytest.importorskip("aiohttp")
 msgpack = pytest.importorskip("msgpack")
 httpx = pytest.importorskip("httpx")
 
-from fastpyvectordb_tpu.http_client import VectorDBClient
-from fastpyvectordb_tpu.server import wire
-from fastpyvectordb_tpu.server.app import create_app
-from fastpyvectordb_tpu.server.router import create_router_app
+from fastpyvectordb_jax.http_client import VectorDBClient
+from fastpyvectordb_jax.server import wire
+from fastpyvectordb_jax.server.app import create_app
+from fastpyvectordb_jax.server.router import create_router_app
 
 D = 16
 
